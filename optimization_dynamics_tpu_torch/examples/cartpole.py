@@ -7,13 +7,17 @@ cost, terminal goal cost + equality constraint, con_tol=0.005.
 ``build_deploy_problem`` is the deploy tier, solved lane-batched by
 ``solver.ilqr_segmented.make_segmented_solver``: on a CUDA device it runs
 the fused IP kernel in float32 at the accelerator IP settings; on the CPU
-it runs the kernel's plain version in float64. Run it with
+it runs the kernel's plain version in float64. Run it on the card with
 
     python -m optimization_dynamics_tpu_torch.examples.cartpole \\
-        --deploy --batch 512 --device cuda
+        --deploy --batch 512 [--fused-rollout] [--riccati-kernel]
 
-Without ``--deploy`` the script solves the single friction swing-up from
-rest (``build_problem``) with the same executor at batch 1.
+``--fused-rollout`` runs every rollout as one K4 launch and
+``--riccati-kernel`` the backward pass as one K3 launch; both are off by
+default. ``--device`` defaults to ``cuda`` and the script stops if there
+is no CUDA device; ``--device cpu`` runs the plain versions. Without
+``--deploy`` the script solves the single friction swing-up from rest
+(``build_problem``) with the same executor at batch 1.
 """
 
 from __future__ import annotations
@@ -28,6 +32,9 @@ import torch
 
 from optimization_dynamics_tpu_torch.dynamics import make_implicit_dynamics
 from optimization_dynamics_tpu_torch.models import cartpole
+from optimization_dynamics_tpu_torch.ops.kernels.fused_rollout import (
+    make_fused_rollout,
+)
 from optimization_dynamics_tpu_torch.solver.ilqr import (
     ILQROptions,
     ILQRProblem,
@@ -54,7 +61,7 @@ DEPLOY_IP_CPU = dict(r_tol=1.0e-8, kappa_tol=1.0e-3, max_iter=40, max_ls=8)
 
 
 def build_problem(mode: str = "friction", friction=(0.35, 0.35),
-                  device="cpu", dtype=torch.float64):
+                  device="cuda", dtype=torch.float64):
     """Returns (prob, x0, us_init, opts). ``mode``: "friction" |
     "frictionless". The problem carries the lane-batched dynamics (cold
     solves)."""
@@ -109,7 +116,8 @@ def build_problem(mode: str = "friction", friction=(0.35, 0.35),
 
 
 def build_deploy_problem(device, dtype=None, friction=(0.35, 0.35),
-                         ip_overrides: dict | None = None):
+                         ip_overrides: dict | None = None,
+                         fused_rollout: bool = False):
     """The deploy-tier problem. Returns ``(prob, x0, us_init, opts)``.
 
     Policy (the reference's, bisected on the TPU): line-search rollouts
@@ -122,7 +130,9 @@ def build_deploy_problem(device, dtype=None, friction=(0.35, 0.35),
     runs the plain version on the CPU. Both cap the AL penalty at 1e6,
     relax con_tol to 0.01 and use an 8-candidate Armijo grid.
     ``ip_overrides`` replaces IP options (e.g. the accelerator settings
-    on the CPU)."""
+    on the CPU). ``fused_rollout`` sets ``prob.rollout_fused`` to K4,
+    built with the eval IP options and ``prob.u_mask`` (all controls
+    active here), so every rollout is one launch."""
     device = torch.device(device)
     on_gpu = device.type == "cuda"
     if dtype is None:
@@ -149,6 +159,9 @@ def build_deploy_problem(device, dtype=None, friction=(0.35, 0.35),
             dyn.step_jac_batched_ws(xs, us, aux, wss),
         ws_init_batched=lambda t, xs, us: dyn.carry_init(xs),
         ws_linesearch=False)
+    if fused_rollout:
+        prob = prob._replace(rollout_fused=make_fused_rollout(
+            model, IPOptions(**ip), aux, T, prob.u_mask, device, dtype))
     opts = dataclasses.replace(opts, con_tol=0.01, rho_max=1.0e6,
                                alpha_min=1.0e-2)
     return prob, x0, us0, opts
@@ -166,18 +179,30 @@ def main(argv=None):
     ap.add_argument("--deploy", action="store_true",
                     help="run the lane-batched deploy solve")
     ap.add_argument("--batch", type=int, default=512)
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu (the plain versions)")
     ap.add_argument("--dtype", choices=("f32", "f64"), default=None,
                     help="default: f32 on a CUDA device with --deploy, "
                          "else f64")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--fused-rollout", action="store_true",
+                    help="with --deploy: every rollout in one K4 launch")
+    ap.add_argument("--riccati-kernel", action="store_true",
+                    help="with --deploy: the backward pass in one K3 launch")
     args = ap.parse_args(argv)
+    if (args.fused_rollout or args.riccati_kernel) and not args.deploy:
+        ap.error("--fused-rollout and --riccati-kernel need --deploy")
     device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("cartpole: no CUDA device; pass --device cpu to "
+                         "run the plain versions on the CPU")
     dtype = {None: None, "f32": torch.float32,
              "f64": torch.float64}[args.dtype]
 
     if args.deploy:
-        prob, x0, us0, opts = build_deploy_problem(device, dtype=dtype)
+        prob, x0, us0, opts = build_deploy_problem(
+            device, dtype=dtype, fused_rollout=args.fused_rollout)
+        opts = dataclasses.replace(opts, riccati_kernel=args.riccati_kernel)
         B = args.batch
         x0s = deploy_x0s(x0, B, args.seed)
         solve = make_segmented_solver(
@@ -205,7 +230,9 @@ def main(argv=None):
     obj = res.objective.cpu().numpy()
     n_conv = int(conv.sum())
     mean_obj = float(obj[conv].mean()) if n_conv else float("nan")
-    print("device=%s dtype=%s batch=%d" % (device, x0.dtype, B))
+    print("device=%s dtype=%s batch=%d fused_rollout=%s riccati_kernel=%s"
+          % (device, x0.dtype, B, prob.rollout_fused is not None,
+             opts.riccati_kernel))
     print("converged %d/%d (%.4f)" % (n_conv, B, n_conv / B))
     print("mean converged objective %.6f" % mean_obj)
     print("wall %.3f s, %.4f converged solves/s" % (wall, n_conv / wall))

@@ -9,8 +9,13 @@
 // The cone tables below are ``cone_spec_friction()`` turned into constexpr
 // lookups: the row masks of ``_row_masks``, the reset mask and template of
 // ``_cone_reset``, and the SOC variable groups (each primal and each dual
-// group is one cone of the fraction-to-boundary step). A CPU test parses
-// these tables and checks them against the Python ConeSpec.
+// group is one cone of the fraction-to-boundary step). ``init_tail`` is
+// the cold start of ``init_z_friction``. A CPU test parses these tables
+// and checks them against the Python ConeSpec and init_z.
+//
+// ``init_z`` and ``pack_theta`` give the fused rollout (K4) the model's
+// cold start and problem data, so that kernel holds nothing
+// model-specific.
 #pragma once
 
 #include "odt_common.cuh"
@@ -21,6 +26,9 @@ template <typename T>
 struct CartpoleFriction {
   static constexpr int NZ = 10;
   static constexpr int NTH = 8;
+  static constexpr int NQ = 2;          // configuration; state x = [q0; q1]
+  static constexpr int NU = 1;
+  static constexpr int NAUX = 3;        // theta tail: mu_slider, mu_angle, h
   static constexpr bool HAS_CONES = true;
   static constexpr int N_ORT = 0;       // orthant variables (prim + dual)
   static constexpr int N_SOC = 4;       // SOC groups, primal and dual
@@ -46,6 +54,16 @@ struct CartpoleFriction {
     constexpr double t[NZ] = {0, 0, 1, 1, 0.1, 0.1, 1, 1, 0.1, 0.1};
     return t[i];
   }
+  // init_z_friction's tail after q: psi=1, b=0.1, s_psi=1, s_b=0.1
+  __host__ __device__ static constexpr double init_tail(int i) {
+    constexpr double t[NZ - NQ] = {1, 1, 0.1, 0.1, 1, 1, 0.1, 0.1};
+    return t[i];
+  }
+  // the next configuration's entries of z
+  __host__ __device__ static constexpr int q_sel(int i) {
+    constexpr int t[NQ] = {0, 1};
+    return t[i];
+  }
   __host__ __device__ static constexpr int ort_idx(int i) {
     constexpr int t[1] = {0};
     return t[i];
@@ -69,6 +87,33 @@ struct CartpoleFriction {
     mpgl = T(mp * g * l);
     mp_plus_mc = T(mp + mc);
     gravity = T(g);
+  }
+
+  // the cold start init_z_friction(q1) of models/cartpole.py
+  __device__ __forceinline__ static void init_z(const T (&q1)[NQ],
+                                                T (&z)[NZ]) {
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) z[i] = q1[i];
+#pragma unroll
+    for (int i = 0; i < NZ - NQ; ++i) z[NQ + i] = T(init_tail(i));
+  }
+
+  // pack_theta_friction: [q0, q1, u, mu_slider, mu_angle, h], with
+  // aux = (mu_slider, mu_angle, h)
+  __device__ __forceinline__ static void pack_theta(const T (&q0)[NQ],
+                                                    const T (&q1)[NQ],
+                                                    const T (&u)[NU],
+                                                    const T (&aux)[NAUX],
+                                                    T (&th)[NTH]) {
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      th[i] = q0[i];
+      th[NQ + i] = q1[i];
+    }
+#pragma unroll
+    for (int i = 0; i < NU; ++i) th[2 * NQ + i] = u[i];
+#pragma unroll
+    for (int i = 0; i < NAUX; ++i) th[2 * NQ + NU + i] = aux[i];
   }
 
   template <typename S>

@@ -45,6 +45,9 @@ class ILQROptions:
     reg_up: float = 10.0
     reg_down: float = 0.5
     lambda_max: float = 1.0e8
+    # run the Riccati backward pass as one CUDA kernel (K3, ops/kernels/
+    # riccati.py): the reference's ``pallas_riccati``
+    riccati_kernel: bool = False
 
 
 class ILQRProblem(NamedTuple):
@@ -63,6 +66,12 @@ class ILQRProblem(NamedTuple):
     ``ws_linesearch``: line-search rollouts warm-start from the previous
     accepted trajectory's solver variables (True) or start cold and only
     hand their variables to the next derivative sweep (False).
+
+    ``rollout_fused(x0s, xss_ref, uss_ref, Kss, kss, alphas) -> (xss, uss,
+    wss)``: a whole closed-loop rollout in one kernel (K4, ops/kernels/
+    fused_rollout.py); when set, both rollouts of the phases run through
+    it. It implements the cold line-search policy (``ws_linesearch``
+    False).
     """
 
     T: int
@@ -83,6 +92,7 @@ class ILQRProblem(NamedTuple):
     dynamics_jac_batched_ws: Optional[Callable] = None
     ws_init_batched: Optional[Callable] = None
     ws_linesearch: bool = True
+    rollout_fused: Optional[Callable] = None
 
 
 class ILQRResult(NamedTuple):

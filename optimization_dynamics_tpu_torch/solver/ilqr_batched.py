@@ -8,7 +8,10 @@ the cascade (``ls_prep`` / ``ls_rungs`` / ``ls_apply``) and the AL
 bookkeeping (constraint violation, dual update, smooth cost).
 
 Every phase works on lane-batched tensors (batch first) and computes each
-lane independently; the time loops are Python loops over batched ops.
+lane independently; the time loops are Python loops over batched ops,
+except where a kernel takes a whole loop: ``ILQROptions.riccati_kernel``
+runs the backward pass as K3 and ``ILQRProblem.rollout_fused`` both
+rollouts as K4.
 The monolithic ``solve_batched``, the ``iters_per_dispatch`` scan, the
 per-lane adaptive line searches and the cross-time ``ws_carry`` are not
 ported.
@@ -22,6 +25,9 @@ from types import SimpleNamespace
 import torch
 from torch.func import vmap
 
+from optimization_dynamics_tpu_torch.ops.kernels.riccati import (
+    make_riccati_backward,
+)
 from optimization_dynamics_tpu_torch.solver.ilqr import (
     ILQROptions,
     ILQRProblem,
@@ -128,14 +134,42 @@ def make_phases(prob: ILQRProblem, opts: ILQROptions, B: int, dtype,
             xs = ys
         xss = torch.stack(xs_all + [xs], dim=1)
         uss = torch.stack(us_all, dim=1)
-        # accumulate the stage costs in time order, as the reference's
-        # scan carry does
+        return (xss, uss, _time_order_cost(xss, uss, lams, lamTs, rhos),
+                torch.stack(ws_all, dim=1))
+
+    def _time_order_cost(xss, uss, lams, lamTs, rhos):
+        """A rollout's AL costs, the stage costs accumulated in time
+        order, as the reference's scan carry does."""
         Jst = _stage_costs(xss, uss, lams, rhos)
         Js = torch.zeros(xss.shape[0], dtype=dtype, device=device)
         for t in range(T - 1):
             Js = Js + Jst[t]
-        Js = Js + terminal_al_v(xs, lamTs, rhos)
-        return xss, uss, Js, torch.stack(ws_all, dim=1)
+        return Js + terminal_al_v(xss[:, -1], lamTs, rhos)
+
+    if prob.rollout_fused is not None:
+        # both rollouts as one K4 launch, costs as the loop above sums
+        # them, so a float64 solve is the same with K4 on or off
+        if prob.ws_linesearch:
+            raise ValueError("rollout_fused implements the cold line-search "
+                             "policy (per-step init_z starts); set "
+                             "ws_linesearch=False")
+        fused_roll = prob.rollout_fused
+
+        def closed_loop(xss_ref, uss_ref, Kss, kss, alphas, lams, lamTs,
+                        rhos, wss):
+            xss, uss, wss_new = fused_roll(xss_ref[:, 0], xss_ref, uss_ref,
+                                           Kss, kss, alphas)
+            return (xss, uss, _time_order_cost(xss, uss, lams, lamTs, rhos),
+                    wss_new)
+
+        def rollout_open(x0s, uss):
+            Bw = x0s.shape[0]
+            zeros = lambda *s: torch.zeros((Bw,) + s, dtype=x0s.dtype,
+                                           device=x0s.device)
+            xss, _, wss = fused_roll(x0s, zeros(T, nx), uss,
+                                     zeros(T - 1, nu, nx), zeros(T - 1, nu),
+                                     zeros())
+            return xss, wss
 
     def derivatives(xss, uss, lams, lamTs, rhos, wss):
         flat_x = xss[:, :-1].reshape(B * (T - 1), nx)
@@ -213,6 +247,9 @@ def make_phases(prob: ILQRProblem, opts: ILQROptions, B: int, dtype,
                 torch.amax(torch.stack(qu_infs), dim=0),
                 torch.stack(oks).all(dim=0))
 
+    backward = (make_riccati_backward(T, nx, nu, prob.u_mask, device, dtype)
+                if opts.riccati_kernel else backward_xla)
+
     n_alpha = int(math.ceil(math.log2(1.0 / opts.alpha_min))) + 1
     alpha_grid = torch.tensor([0.5 ** i for i in range(n_alpha)],
                               dtype=dtype, device=device)
@@ -265,7 +302,7 @@ def make_phases(prob: ILQRProblem, opts: ILQROptions, B: int, dtype,
         convergence signals, the candidate after slice 0, and ``covered``
         (every active lane already accepted, a 0-dim bool tensor)."""
         d = derivatives(xss, uss, lams, lamTs, rhos, wss)
-        Kss, kss, dV1, dV2, qu_inf, bp_ok = backward_xla(*d, regs)
+        Kss, kss, dV1, dV2, qu_inf, bp_ok = backward(*d, regs)
         cand = ls_slices[0](xss, uss, Kss, kss, Js, dV1, dV2, lams,
                             lamTs, rhos, wss)
         covered = (cand[3] | ~active).all()

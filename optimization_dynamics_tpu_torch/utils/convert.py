@@ -37,14 +37,18 @@ def cartpole_aux(a, device, dtype) -> CartpoleAux:
     return CartpoleAux(h=float(np.asarray(a.h)), friction=fr)
 
 
-def _options(src, cls):
-    """``cls`` from the same-named fields of the dataclass ``src``. A field
+def _options(src, cls, renames=None):
+    """``cls`` from the same-named fields of the dataclass ``src``
+    (``renames``: the port's name of a field named otherwise). A field
     the port does not have must be off in ``src``, or this raises."""
     names = {f.name for f in dataclasses.fields(cls)}
+    renames = renames or {}
     kw = {}
     for f in dataclasses.fields(src):
         v = getattr(src, f.name)
-        if f.name in names:
+        if renames.get(f.name) in names:
+            kw[renames[f.name]] = v
+        elif f.name in names:
             kw[f.name] = v
         elif v:
             raise ValueError("%s.%s=%r has no counterpart in the port"
@@ -58,9 +62,10 @@ def ip_options(o) -> IPOptions:
 
 
 def ilqr_options(o) -> ILQROptions:
-    """The port's ``ILQROptions`` from the reference's (the scalar-solver
-    and Pallas-Riccati switches must be off)."""
-    return _options(o, ILQROptions)
+    """The port's ``ILQROptions`` from the reference's: ``pallas_riccati``
+    becomes ``riccati_kernel`` (K3); the scalar-solver switches must be
+    off."""
+    return _options(o, ILQROptions, {"pallas_riccati": "riccati_kernel"})
 
 
 def al_state(res):

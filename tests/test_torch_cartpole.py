@@ -180,6 +180,11 @@ def test_cuda_functor_tables_match_cone_spec():
     groups = [list(g) for g in list(spec.soc_prim) + list(spec.soc_dual)]
     assert tables["soc_idx"] == [float(i) for g in groups for i in g]
     assert not spec.ort_prim
+    # init_z's cold start (K4's per-step start) and the next configuration
+    q = torch.tensor([[0.3, -1.2]], dtype=F64)
+    z = tcp.init_z_friction(q)
+    assert tables["init_tail"] == z[0, 2:].tolist()
+    assert tables["q_sel"] == [float(i) for i in tcp.friction_model().q_sel]
 
 
 def test_convert_options_round_trip():
@@ -191,5 +196,9 @@ def test_convert_options_round_trip():
         convert.ip_options(jip.IPOptions(verbose=True))
     from optimization_dynamics_tpu.solver.ilqr import ILQROptions
     assert convert.ilqr_options(ILQROptions(rho_max=1e6)).rho_max == 1e6
+    # the reference's Pallas Riccati pass maps to the port's K3
+    to = convert.ilqr_options(ILQROptions(pallas_riccati=True))
+    assert to.riccati_kernel is True
+    assert convert.ilqr_options(ILQROptions()).riccati_kernel is False
     with pytest.raises(ValueError):
-        convert.ilqr_options(ILQROptions(pallas_riccati=True))
+        convert.ilqr_options(ILQROptions(parallel_riccati=True))

@@ -11,7 +11,12 @@ Tolerances: in float64 the kernels and the plain versions run the same
 steps and differ only in summation order (K1: z within 1e-10 where both
 converge in the same iteration count; K2: relative difference 1e-10);
 in float32, K1's configurations within 1e-4 (the reference's fused-kernel
-tolerance) and K2's relative difference 1e-3.
+tolerance) and K2's relative difference 1e-3. K3 (Riccati backward pass)
+within 1e-10 relative in float64 and 1e-4 in float32, ``ok`` identical;
+K4 (fused rollout) in float64 with identical per-step converged flags on
+>= 99.5% of lane-steps and states within 1e-10 where every step of both
+converged, in float32 states within 2e-4 (the reference's fused-rollout
+tolerance).
 """
 
 import numpy as np
@@ -30,6 +35,15 @@ from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import (
     fused_ip,
     make_fused_ip_plain,
     make_fused_ip_solver,
+)
+from optimization_dynamics_tpu_torch.ops.kernels.fused_rollout import (
+    fused_rollout,
+    make_fused_rollout,
+    make_fused_rollout_plain,
+)
+from optimization_dynamics_tpu_torch.ops.kernels.riccati import (
+    riccati_backward,
+    riccati_backward_plain,
 )
 from optimization_dynamics_tpu_torch.solver.interior_point import IPOptions
 
@@ -132,3 +146,128 @@ def test_kernel_wrappers_raise_on_unsupported_input(card):
     with pytest.raises(TypeError):
         batched_solve(A[:, :, :].half(), torch.zeros((4, 9, 1),
                                                      device=card).half())
+
+
+def _rand_lqr(seed, B, T, nx, nu, device, dtype):
+    """Random LQR data (fxs, fus, lxs, lus, lxxs, luus, luxs, gTs, HTs,
+    regs) as the reference's Riccati kernel test draws it."""
+    rng = np.random.default_rng(seed)
+    n = lambda *s: rng.standard_normal(s)
+
+    def spd(n_):
+        A = n(B, T - 1, n_, n_)
+        return np.einsum("btij,btkj->btik", A, A) + 0.5 * np.eye(n_)
+
+    A = n(B, nx, nx)
+    data = [0.5 * n(B, T - 1, nx, nx), 0.5 * n(B, T - 1, nx, nu),
+            n(B, T - 1, nx), n(B, T - 1, nu), spd(nx), spd(nu),
+            0.3 * n(B, T - 1, nu, nx), n(B, nx),
+            np.einsum("bij,bkj->bik", A, A) + np.eye(nx), np.full(B, 1e-6)]
+    return [torch.as_tensor(a, dtype=dtype, device=device) for a in data]
+
+
+def _riccati_rel(got, ref):
+    """Largest relative difference over the five float outputs."""
+    return max(float((g - r).abs().max() / r.abs().max().clamp_min(1e-30))
+               for g, r in zip(got[:5], ref[:5]))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("nx,nu,T,ragged", [(4, 1, 51, False),
+                                            (4, 3, 6, True),
+                                            (10, 4, 5, False)])
+def test_riccati_kernel_matches_plain(card, dtype, tol, nx, nu, T, ragged):
+    data = _rand_lqr(6, 100, T, nx, nu, card, dtype)
+    mask = torch.ones((T - 1, nu), dtype=dtype, device=card)
+    if ragged:
+        mask[:, nu - 1] = 0
+        mask[0, 0] = 0
+    before = riccati_backward.launches
+    got = riccati_backward(*data, mask)
+    assert riccati_backward.launches == before + 1
+    ref = riccati_backward_plain(*data, mask)
+    assert _riccati_rel(got, ref) <= tol
+    assert torch.equal(got[5], ref[5]) and bool(got[5].all())
+    if ragged:
+        assert (got[0][:, :, nu - 1] == 0).all()
+        assert (got[1][:, 0, 0] == 0).all()
+
+
+def test_riccati_kernel_flags_indefinite(card):
+    """A Quu that is not positive definite at t=0 clears ``ok`` on its
+    lane only; the gains stay finite and equal the plain version's."""
+    nx, nu, T = 4, 3, 6
+    data = _rand_lqr(7, 8, T, nx, nu, card, torch.float64)
+    data[5][3, 0] = -5.0 * torch.eye(nu, dtype=torch.float64)
+    mask = torch.ones((T - 1, nu), dtype=torch.float64, device=card)
+    got = riccati_backward(*data, mask)
+    ref = riccati_backward_plain(*data, mask)
+    assert got[5].tolist() == [True] * 3 + [False] + [True] * 4
+    assert torch.equal(got[5], ref[5])
+    assert bool(torch.isfinite(got[0]).all() & torch.isfinite(got[1]).all())
+    assert _riccati_rel(got, ref) <= 1e-10
+
+
+def _rollout_inputs(B, T, seed, device, dtype):
+    """x0s near the deploy start, a reference from its open-loop rollout
+    under random controls, random gains, alphas over the Armijo grid."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    x0s = t(0.01 * rng.standard_normal((B, 4)))
+    uss = t(rng.standard_normal((B, T - 1, 1)))
+    Kss = t(0.1 * rng.standard_normal((B, T - 1, 1, 4)))
+    kss = t(0.2 * rng.standard_normal((B, T - 1, 1)))
+    alphas = t(0.5 ** (np.arange(B) % 8))
+    return x0s, uss, Kss, kss, alphas
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fused_rollout_kernel_matches_plain(card, dtype, ragged):
+    T, B = 21, 256
+    model = cartpole.friction_model()
+    aux = cartpole.CartpoleAux(h=0.05, friction=torch.tensor(
+        [0.35, 0.35], dtype=dtype, device=card))
+    mask = np.ones((T - 1, 1), bool)
+    if ragged:
+        mask[5:9] = False
+    x0s, uss, Kss, kss, alphas = _rollout_inputs(B, T, 8, card, dtype)
+    kern = make_fused_rollout(model, OPTS, aux, T, mask, card, dtype)
+    plain = make_fused_rollout_plain(model, OPTS, aux, T, mask, card, dtype)
+    zero = torch.zeros_like(alphas)
+    xss_ref = kern(x0s, torch.zeros((B, T, 4), dtype=dtype, device=card),
+                   uss, 0 * Kss, 0 * kss, zero)[0]
+    before = fused_rollout.launches
+    xk, uk, wk, sk = kern(x0s, xss_ref, uss, Kss, kss, alphas,
+                          return_stats=True)
+    assert fused_rollout.launches == before + 1
+    xp, up, wp, sp = plain(x0s, xss_ref, uss, Kss, kss, alphas)
+    assert bool(torch.isfinite(xk).all() & torch.isfinite(wk).all())
+    ck, cp = sk[..., 1] > 0.5, sp[..., 1] > 0.5
+    every = (ck.all(dim=1) & cp.all(dim=1)).cpu()
+    assert every.float().mean() >= 0.9
+    dx = (xk - xp).abs().amax(dim=(1, 2)).cpu()[every]
+    if dtype == torch.float64:
+        assert float((ck == cp).float().mean()) >= 0.995
+        assert float(dx.max()) <= 1e-10
+    else:
+        assert float(dx.max()) <= 2e-4
+    if ragged:
+        assert torch.equal(uk[:, 5:9], uss[:, 5:9])
+
+
+def test_k3_k4_wrappers_raise_on_unsupported_input(card):
+    data = _rand_lqr(9, 2, 4, 5, 2, card, torch.float32)
+    with pytest.raises(ValueError):
+        riccati_backward(*data, torch.ones((3, 2), device=card))
+    model = cartpole.friction_model()
+    aux = cartpole.CartpoleAux(h=0.05, friction=torch.tensor(
+        [0.35, 0.35], device=card))
+    roll = make_fused_rollout(model, OPTS, aux, 4, None, card,
+                              torch.float32)
+    x0s, uss, Kss, kss, alphas = _rollout_inputs(2, 4, 1, card,
+                                                 torch.float32)
+    with pytest.raises(TypeError):
+        roll(x0s.half(), torch.zeros((2, 4, 4), device=card).half(),
+             uss.half(), Kss.half(), kss.half(), alphas.half())

@@ -210,7 +210,7 @@ def test_cartpole_friction_swingup_golden():
     goldens = json.load(open(os.path.join(os.path.dirname(__file__),
                                           "goldens.json")))
     refs = goldens["cartpole_friction_objective"]
-    prob, x0, us0, opts = tex.build_problem("friction")
+    prob, x0, us0, opts = tex.build_problem("friction", device="cpu")
     solve = make_segmented_solver(prob, opts, 1, F64, "cpu")
     res = solve(x0[None], us0)
     assert bool(res.converged[0])
