@@ -12,7 +12,8 @@ sources compile in parallel, one ``nvcc`` each, then one link:
 The library lands in ``build/odt_kernels/`` at the repository root, named
 by a hash of every source under ``csrc/`` and of the flags, so a change
 to a kernel rebuilds it and nothing else is read. The compilers' output
-(``-Xptxas -v``: registers, spills) is kept beside it as ``<name>.log``.
+(``-Xptxas -v``: registers, spills) and each source's compile time are
+kept beside it as ``<name>.log``; ``ptxas_report`` reads it back.
 No ``--use_fast_math``: approximate division and square root would move
 the interior-point line search's picks.
 
@@ -25,14 +26,18 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
 
-__all__ = ["library_path", "build", "load_library", "FUSED_IP_FUNCTORS",
+__all__ = ["library_path", "build", "load_library", "ptxas_report",
+           "FUSED_IP_FUNCTORS",
            "BATCHED_SOLVE_SHAPES", "RICCATI_SHAPES",
            "FUSED_ROLLOUT_FUNCTORS", "fused_ip_symbol",
            "batched_solve_symbol", "riccati_symbol", "fused_rollout_symbol"]
@@ -47,9 +52,10 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 # from it, and the C names of csrc/*.cu follow the ``*_symbol`` helpers
 # below: a new instantiation is one line here plus its line in the .cu
 # file.
-FUSED_IP_FUNCTORS = {"cartpole_friction": (10, 8)}    # name -> (nz, ntheta)
+FUSED_IP_FUNCTORS = {"cartpole_friction": (10, 8),  # name -> (nz, ntheta)
+                     "planar_push": (35, 13)}
 FUSED_ROLLOUT_FUNCTORS = {"cartpole_friction": (2, 1)}  # name -> (nq, nu)
-BATCHED_SOLVE_SHAPES = frozenset({(10, 8), (10, 1)})  # (n, k)
+BATCHED_SOLVE_SHAPES = frozenset({(10, 8), (10, 1), (35, 13)})  # (n, k)
 RICCATI_SHAPES = frozenset({(4, 1), (4, 3), (6, 3), (10, 4)})  # (nx, nu)
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -110,6 +116,14 @@ def _nvcc() -> str:
     return found
 
 
+def _run(cmd):
+    """Run one compiler command; (exit code, output, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True, cwd=str(CSRC))
+    return proc.returncode, proc.stdout, time.perf_counter() - t0
+
+
 def build() -> Path:
     """Compile the kernels unless the library for these sources exists;
     return its path."""
@@ -119,33 +133,50 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        cmds, procs = [], []
-        for src in (p for p in _sources() if p.suffix == ".cu"):
-            cmds.append([nvcc, *NVCC_FLAGS, "-c", "-o",
-                         str(Path(tmp) / (src.stem + ".o")), str(src)])
-            procs.append(subprocess.Popen(
-                cmds[-1], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True, cwd=str(CSRC)))
-        outs = [p.communicate()[0] for p in procs]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o",
+                 str(Path(tmp) / (src.stem + ".o")), str(src)]
+                for src in _sources() if src.suffix == ".cu"]
+        with ThreadPoolExecutor(len(cmds)) as pool:
+            runs = list(pool.map(_run, cmds))
         so = str(Path(tmp) / "lib.so")
         link = [nvcc, *ARCH, "-shared", "-o", so,
                 *(c[c.index("-o") + 1] for c in cmds)]
-        failed = [c for c, p in zip(cmds, procs) if p.returncode != 0]
+        failed = [c for c, r in zip(cmds, runs) if r[0] != 0]
         if not failed:
-            proc = subprocess.run(link, stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
             cmds.append(link)
-            outs.append(proc.stdout)
-            if proc.returncode != 0:
+            runs.append(_run(link))
+            if runs[-1][0] != 0:
                 failed = [link]
-        log = "".join("$ %s\n%s" % (" ".join(c), o)
-                      for c, o in zip(cmds, outs))
+        log = "".join("$ %s\n%s# %.1f s\n" % (" ".join(c), out, sec)
+                      for c, (_, out, sec) in zip(cmds, runs))
         lib.with_suffix(".log").write_text(log)
         if failed:
             raise RuntimeError("nvcc failed on %s:\n%s"
                                % (", ".join(c[-1] for c in failed), log))
         os.replace(so, lib)
     return lib
+
+
+def ptxas_report() -> dict:
+    """What the build of these sources logged: per command its seconds,
+    and per kernel its registers, stack frame and spill bytes
+    (``{"compile_s": {source: s}, "kernels": {name: {...}}}``)."""
+    text = library_path().with_suffix(".log").read_text()
+    out = {"compile_s": {}, "kernels": {}}
+    for cmd, body, sec in re.findall(r"^\$ (.*?)\n(.*?)^# ([\d.]+) s$",
+                                     text, re.S | re.M):
+        src = "link" if " -shared " in cmd else Path(cmd.split()[-1]).name
+        out["compile_s"][src] = float(sec)
+        for name, props in re.findall(
+                r"Compiling entry function '(\w+)'(.*?)(?=Compiling entry"
+                r" function|\Z)", body, re.S):
+            num = lambda pat: int((re.search(pat, props) or [0, 0])[1])
+            out["kernels"][name] = dict(
+                registers=num(r"Used (\d+) registers"),
+                stack=num(r"(\d+) bytes stack frame"),
+                spill_stores=num(r"(\d+) bytes spill stores"),
+                spill_loads=num(r"(\d+) bytes spill loads"))
+    return out
 
 
 @functools.lru_cache(maxsize=None)

@@ -5,6 +5,9 @@
 // the design note.
 //
 // Layout: A (B, N, N), b and x (B, N, K), row-major and contiguous.
+// Shapes: (10, 8) and (10, 1) for cartpole's IFT and Newton solves, (35,
+// 13) for planar push's IFT solve; above UNROLL_MAX_N (odt_common.cuh)
+// the QR's loops stay rolled and the system lives in local memory.
 #include <cstdint>
 
 #include "odt_common.cuh"
@@ -41,7 +44,8 @@ template <typename T, int N, int K>
 int launch_batched_solve(const void* A, const void* b, void* x, int B,
                          void* stream) {
   if (B <= 0) return 0;
-  const int threads = 128;
+  // 32 threads a block for the local-memory systems, as K1n
+  const int threads = N <= UNROLL_MAX_N ? 128 : 32;
   const int blocks = (B + threads - 1) / threads;
   batched_solve_kernel<T, N, K><<<blocks, threads, 0, (cudaStream_t)stream>>>(
       static_cast<const T*>(A), static_cast<const T*>(b), static_cast<T*>(x),
@@ -63,4 +67,6 @@ ODT_BATCHED_SOLVE(10, 8, f32, float)
 ODT_BATCHED_SOLVE(10, 8, f64, double)
 ODT_BATCHED_SOLVE(10, 1, f32, float)
 ODT_BATCHED_SOLVE(10, 1, f64, double)
+ODT_BATCHED_SOLVE(35, 13, f32, float)
+ODT_BATCHED_SOLVE(35, 13, f64, double)
 }  // extern "C"

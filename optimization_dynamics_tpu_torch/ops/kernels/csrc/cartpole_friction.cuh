@@ -32,7 +32,7 @@ struct CartpoleFriction {
   static constexpr bool HAS_CONES = true;
   static constexpr int N_ORT = 0;       // orthant variables (prim + dual)
   static constexpr int N_SOC = 4;       // SOC groups, primal and dual
-  static constexpr int SOC_DIM = 2;
+  static constexpr int SOC_MAX = 2;     // the largest group's dimension
 
   __host__ __device__ static constexpr double eq_mask(int i) {
     constexpr double t[NZ] = {1, 1, 1, 1, 1, 1, 0, 0, 0, 0};
@@ -68,8 +68,12 @@ struct CartpoleFriction {
     constexpr int t[1] = {0};
     return t[i];
   }
+  __host__ __device__ static constexpr int soc_dim(int g) {
+    constexpr int t[N_SOC] = {2, 2, 2, 2};
+    return t[g];
+  }
   __host__ __device__ static constexpr int soc_idx(int g, int j) {
-    constexpr int t[N_SOC][SOC_DIM] = {{2, 4}, {3, 5}, {6, 8}, {7, 9}};
+    constexpr int t[N_SOC][SOC_MAX] = {{2, 4}, {3, 5}, {6, 8}, {7, 9}};
     return t[g][j];
   }
 

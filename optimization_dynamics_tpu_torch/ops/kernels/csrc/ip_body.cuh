@@ -75,6 +75,8 @@ __device__ __forceinline__ T soc_alpha(const T* zg, const T* dg, int dim) {
   return jmin(root, a_axis);
 }
 
+// SOC group g has M::soc_dim(g) <= M::SOC_MAX entries (ragged groups:
+// planar push mixes 3- and 2-dim cones)
 template <typename T, typename M>
 __device__ __forceinline__ T boundary_alpha(const T (&z)[M::NZ],
                                             const T (&d)[M::NZ]) {
@@ -87,13 +89,16 @@ __device__ __forceinline__ T boundary_alpha(const T (&z)[M::NZ],
   }
 #pragma unroll
   for (int g = 0; g < M::N_SOC; ++g) {
-    T zg[M::SOC_DIM], dg[M::SOC_DIM];
+    const int dim = M::soc_dim(g);
+    T zg[M::SOC_MAX], dg[M::SOC_MAX];
 #pragma unroll
-    for (int j = 0; j < M::SOC_DIM; ++j) {
-      zg[j] = z[M::soc_idx(g, j)];
-      dg[j] = d[M::soc_idx(g, j)];
+    for (int j = 0; j < M::SOC_MAX; ++j) {
+      if (j < dim) {
+        zg[j] = z[M::soc_idx(g, j)];
+        dg[j] = d[M::soc_idx(g, j)];
+      }
     }
-    a = jmin(a, soc_alpha(zg, dg, M::SOC_DIM));
+    a = jmin(a, soc_alpha(zg, dg, dim));
   }
   return jmin(a, T(1));
 }
@@ -120,6 +125,22 @@ __device__ __forceinline__ T row_vio(const T (&r0)[M::NZ], bool bil) {
   return m;
 }
 
+// Column j of the residual's Jacobian in z: one dual-number residual
+// seeded on z[j]
+template <typename T, typename M>
+__device__ __forceinline__ void jacobian_column(const T (&z)[M::NZ],
+                                                const T (&th)[M::NTH],
+                                                const M& model, int j,
+                                                T (&J)[M::NZ][M::NZ]) {
+  constexpr int NZ = M::NZ;
+  Dual<T> zd[NZ], rd[NZ];
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) zd[i] = Dual<T>(z[i], i == j ? T(1) : T(0));
+  model.template residual<Dual<T>>(zd, th, rd);
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) J[i][j] = rd[i].d;
+}
+
 // Solve the lane's IP problem from z (in: the start, out: the solution).
 // stats: iterations, converged (1/0), equality-row violation,
 // bilinear-row violation.
@@ -143,17 +164,15 @@ __device__ __forceinline__ void ip_solve_lane(T (&z)[M::NZ],
   while (it < p.max_iter) {
     if (merit_of<T, M>(r0, p.kappa_final) < p.r_tol || stalled) break;
 
-    // Jacobian, one dual-number residual per column
+    // Jacobian, one dual-number residual per column; the column loop
+    // stays rolled above UNROLL_MAX_N (J then lives in local memory)
     T J[NZ][NZ];
+    if constexpr (NZ <= UNROLL_MAX_N) {
 #pragma unroll
-    for (int j = 0; j < NZ; ++j) {
-      Dual<T> zd[NZ], rd[NZ];
-#pragma unroll
-      for (int i = 0; i < NZ; ++i)
-        zd[i] = Dual<T>(z[i], i == j ? T(1) : T(0));
-      model.template residual<Dual<T>>(zd, th, rd);
-#pragma unroll
-      for (int i = 0; i < NZ; ++i) J[i][j] = rd[i].d;
+      for (int j = 0; j < NZ; ++j) jacobian_column<T, M>(z, th, model, j, J);
+    } else {
+#pragma unroll 1
+      for (int j = 0; j < NZ; ++j) jacobian_column<T, M>(z, th, model, j, J);
     }
     if (p.gamma_reg > T(0)) {
 #pragma unroll

@@ -6,11 +6,19 @@
 //   a template on its number type gives its values with T and one
 //   Jacobian column per evaluation with Dual<T> (the seed picks the
 //   column): the CUDA counterpart of jax.jacfwd / torch.func.jacfwd.
+// * UNROLL_MAX_N: the unroll policy of the loops over an N-unknown system
+//   (the QR solve, the Jacobian's columns). Up to 16 unknowns they unroll
+//   fully, so the system lives in registers; above (planar push, 35) they
+//   stay rolled, so the arrays live in local memory and nvcc does not
+//   expand ~N^3 statements. The two are separate instantiations (if
+//   constexpr on N), so the rolled code never enters a small system's.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace odt {
+
+constexpr int UNROLL_MAX_N = 16;
 
 template <typename T>
 __device__ __forceinline__ T jmin(T a, T b) {
@@ -76,6 +84,46 @@ __device__ __forceinline__ Dual<T> dsin(Dual<T> a) {
 template <typename T>
 __device__ __forceinline__ Dual<T> dcos(Dual<T> a) {
   return Dual<T>(dcos(a.v), -dsin(a.v) * a.d);
+}
+
+__device__ __forceinline__ float dsqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ double dsqrt(double x) { return sqrt(x); }
+template <typename T>
+__device__ __forceinline__ Dual<T> dsqrt(Dual<T> a) {
+  const T r = dsqrt(a.v);
+  return Dual<T>(r, a.d / (T(2) * r));
+}
+
+// x ** y for a real exponent y (a constant of the model, not a variable)
+__device__ __forceinline__ float dpow(float x, float y) { return powf(x, y); }
+__device__ __forceinline__ double dpow(double x, double y) {
+  return pow(x, y);
+}
+template <typename T>
+__device__ __forceinline__ Dual<T> dpow(Dual<T> a, T y) {
+  return Dual<T>(dpow(a.v, y), y * dpow(a.v, y - T(1)) * a.d);
+}
+
+// x ** N for an integer N >= 1 by binary exponentiation: the
+// multiplications of jnp's integer_pow, for T and Dual<T> alike (on a
+// dual number the product rule of each multiplication gives the tangent)
+template <int N, typename S>
+__device__ __forceinline__ S ipow(S x) {
+  static_assert(N >= 1, "ipow: N >= 1");
+  S acc = x;
+  bool have = false;
+  int n = N;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    if (n == 0) break;
+    if (n & 1) {
+      acc = have ? acc * x : x;
+      have = true;
+    }
+    n >>= 1;
+    if (n > 0) x = x * x;
+  }
+  return acc;
 }
 
 }  // namespace odt

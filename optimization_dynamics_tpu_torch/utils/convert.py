@@ -16,11 +16,15 @@ import torch
 
 from optimization_dynamics_tpu_torch.models.cartpole import (CartpoleAux,
                                                              CartpoleParams)
+from optimization_dynamics_tpu_torch.models.planar_push import (
+    PlanarPushAux,
+    PlanarPushParams,
+)
 from optimization_dynamics_tpu_torch.solver.ilqr import ILQROptions
 from optimization_dynamics_tpu_torch.solver.interior_point import IPOptions
 
-__all__ = ["cartpole_params", "cartpole_aux", "ip_options", "ilqr_options",
-           "al_state"]
+__all__ = ["cartpole_params", "cartpole_aux", "planar_push_params",
+           "planar_push_aux", "ip_options", "ilqr_options", "al_state"]
 
 
 def cartpole_params(p) -> CartpoleParams:
@@ -35,6 +39,18 @@ def cartpole_aux(a, device, dtype) -> CartpoleAux:
     fr = None if a.friction is None else torch.as_tensor(
         np.array(a.friction), dtype=dtype, device=device)
     return CartpoleAux(h=float(np.asarray(a.h)), friction=fr)
+
+
+def planar_push_params(p) -> PlanarPushParams:
+    """The port's ``PlanarPushParams`` from the reference's."""
+    return PlanarPushParams(*(float(getattr(p, f))
+                              for f in PlanarPushParams._fields))
+
+
+def planar_push_aux(a) -> PlanarPushAux:
+    """The port's ``PlanarPushAux`` from the reference's (the timestep as
+    a Python float)."""
+    return PlanarPushAux(h=float(np.asarray(a.h)))
 
 
 def _options(src, cls, renames=None):

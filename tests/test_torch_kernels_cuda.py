@@ -16,7 +16,11 @@ within 1e-10 relative in float64 and 1e-4 in float32, ``ok`` identical;
 K4 (fused rollout) in float64 with identical per-step converged flags on
 >= 99.5% of lane-steps and states within 1e-10 where every step of both
 converged, in float32 states within 2e-4 (the reference's fused-rollout
-tolerance).
+tolerance). K1n (the fused IP solve at nz=35, planar push) as K1, with
+float32 configurations within 2e-4 (the reference's tolerance for push),
+and z compared in float64 where both converge in the same iteration
+count; K2 at (35, 13) within 1e-10 relative in float64 and 1e-3 in
+float32.
 """
 
 import numpy as np
@@ -26,7 +30,8 @@ import torch
 from optimization_dynamics_tpu_torch.examples.cartpole import (
     DEPLOY_IP_ACCEL,
 )
-from optimization_dynamics_tpu_torch.models import cartpole
+from optimization_dynamics_tpu_torch.examples import planar_push as push_ex
+from optimization_dynamics_tpu_torch.models import cartpole, planar_push
 from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
     batched_solve,
     batched_solve_plain,
@@ -271,3 +276,97 @@ def test_k3_k4_wrappers_raise_on_unsupported_input(card):
     with pytest.raises(TypeError):
         roll(x0s.half(), torch.zeros((2, 4, 4), device=card).half(),
              uss.half(), Kss.half(), kss.half(), alphas.half())
+
+
+PUSH_OPTS = IPOptions(**push_ex.DEPLOY_IP_ACCEL)
+
+
+def _push(B, seed, device, dtype):
+    """Cold planar-push solves around the nominal pose (pusher touching the
+    box's left face, u = [1, 0.1])."""
+    rng = np.random.default_rng(seed)
+    q0 = (np.array([0.0, 0.0, 0.0, -planar_push.R_DIM - 1e-6, 0.0])
+          + 0.005 * rng.standard_normal((B, 5)))
+    q1 = q0 + 0.001 * rng.standard_normal((B, 5))
+    u = np.array([1.0, 0.1]) + 0.1 * rng.standard_normal((B, 2))
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    model = planar_push.model()
+    return model, model.init_z(t(q1)), model.theta_fn(
+        t(q0), t(q1), t(u), planar_push.PlanarPushAux(h=0.1))
+
+
+@pytest.mark.parametrize("start", ["cold", "warm"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fused_ip_push_kernel_matches_plain(card, dtype, start):
+    model, z0s, ths = _push(640, 11, card, dtype)
+    kern = make_fused_ip_solver(model, PUSH_OPTS, card, dtype)
+    if start == "warm":
+        rng = np.random.default_rng(12)
+        prev = ths.clone()
+        prev[:, list(model.th_u)] += torch.as_tensor(
+            0.05 * rng.standard_normal((ths.shape[0], 2)), dtype=dtype,
+            device=card)
+        z0s = kern(z0s, prev).z
+    before = fused_ip.launches
+    sk = kern(z0s, ths)
+    assert fused_ip.launches == before + 1
+    sp = make_fused_ip_plain(model, PUSH_OPTS, card, dtype)(z0s, ths)
+    ck, cp = sk.converged.cpu().numpy(), sp.converged.cpu().numpy()
+    both = ck & cp
+    assert both.sum() > 0.9 * len(ck)
+    if dtype == torch.float64:
+        assert (ck == cp).mean() >= 0.995
+        same = both & (sk.iterations == sp.iterations).cpu().numpy()
+        assert same.sum() > 0.5 * len(ck)
+        dz = (sk.z - sp.z).abs().cpu().numpy()[same]
+        assert dz.max() <= 1e-10
+    else:
+        assert abs(int(ck.sum()) - int(cp.sum())) <= 0.01 * len(ck)
+        dq = (sk.z - sp.z)[:, :5].abs().cpu().numpy()[both]
+        assert dq.max() <= 2e-4
+
+
+def test_fused_ip_push_kernel_ragged_batch(card):
+    """Batches that are not a multiple of the 32-thread block."""
+    for B in (1, 5, 33):
+        model, z0s, ths = _push(B, 13, card, torch.float64)
+        sk = make_fused_ip_solver(model, PUSH_OPTS, card, torch.float64)(
+            z0s, ths)
+        sp = make_fused_ip_plain(model, PUSH_OPTS, card, torch.float64)(
+            z0s, ths)
+        assert tuple(sk.z.shape) == (B, 35)
+        np.testing.assert_array_equal(sk.converged.cpu().numpy(),
+                                      sp.converged.cpu().numpy())
+        assert bool(sk.converged.all())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.float64, 1e-10)])
+def test_batched_solve_push_shape_matches_plain(card, dtype, tol):
+    rng = np.random.default_rng(14)
+    A = rng.standard_normal((500, 35, 35)) + 12.0 * np.eye(35)
+    b = rng.standard_normal((500, 35, 13))
+    At = torch.as_tensor(A, dtype=dtype, device=card)
+    bt = torch.as_tensor(b, dtype=dtype, device=card)
+    before = batched_solve.launches
+    x = batched_solve(At, bt)
+    assert batched_solve.launches == before + 1
+    xp = batched_solve_plain(At, bt)
+    assert float((x - xp).abs().amax() / xp.abs().amax()) <= tol
+
+
+def test_push_wrappers_raise_on_wrong_functor_or_shape(card):
+    model, z0s, ths = _push(4, 15, card, torch.float32)
+    cart = np.asarray(cartpole.friction_model().kernel_params, np.float64)
+    push = np.asarray(model.kernel_params, np.float64)
+    ip = np.zeros(11)
+    plain = lambda *a: None
+    with pytest.raises(ValueError):
+        fused_ip(z0s, ths, "cartpole_friction", cart, ip, plain)
+    with pytest.raises(ValueError):
+        fused_ip(z0s[:, :34], ths, "planar_push", push, ip, plain)
+    with pytest.raises(ValueError):
+        fused_ip(z0s, ths[:, :12], "planar_push", push, ip, plain)
+    with pytest.raises(ValueError):
+        batched_solve(torch.zeros((4, 35, 35), device=card),
+                      torch.zeros((4, 35, 12), device=card))

@@ -1,23 +1,27 @@
-"""Card measurements of the port's cartpole deploy solve.
+"""Card measurements of the port's deploy solves (cartpole, planar push).
 
 Run from the repository root on a machine with one CUDA card:
 
     python -m tools.torch_measure deploy --dtype f64 --batch 512
     python -m tools.torch_measure deploy --dtype f32 --batch 16 --lanes
     python -m tools.torch_measure profile
+    python -m tools.torch_measure deploy --model planar_push
+    python -m tools.torch_measure profile --model planar_push
 
-``deploy`` runs the example's deploy solve (``examples/cartpole.py``,
-``main --deploy``), which prints its own summary, then prints one JSON
-line: the K1 and K2 launches of the solve, the median converged
-objective and, with ``--lanes``, each lane's flag, objective and inner
-iterations.
+``deploy`` runs the example's deploy solve (``examples/cartpole.py`` or
+``examples/planar_push.py``, ``main --deploy``), which prints its own
+summary, then prints one JSON line: the K1 (K1n for push) and K2
+launches of the solve, the median converged objective and, with
+``--lanes``, each lane's flag, objective and inner iterations. The batch
+defaults to the deploy width: 512 for cartpole, 256 for push.
 
-``profile`` solves one AL round of five inner iterations at B=512 in
-float32 three times after a warm-up: unprofiled (wall), under cProfile
-(host time per function of the port, and the 25 functions of any module
-with the most time of their own), and under ``torch.profiler``
-(kernel timeline). It prints the device busy share, the union of the
-kernel intervals over the profiled wall, and the device time per kernel.
+``profile`` solves one AL round of five inner iterations at the deploy
+width in float32 three times after a warm-up: unprofiled (wall), under
+cProfile (host time per function of the port, and the 25 functions of
+any module with the most time of their own), and under
+``torch.profiler`` (kernel timeline). It prints the device busy share,
+the union of the kernel intervals over the profiled wall, and the device
+time per kernel.
 """
 
 import argparse
@@ -42,16 +46,24 @@ def _launch_counters():
     return fused_ip, batched_solve
 
 
-def deploy(args) -> None:
-    from optimization_dynamics_tpu_torch.examples import cartpole as ex
+def _example(args):
+    """(example module, deploy batch) of ``--model``."""
+    import importlib
 
+    ex = importlib.import_module("optimization_dynamics_tpu_torch.examples."
+                                 + args.model)
+    return ex, args.batch or {"cartpole": 512, "planar_push": 256}[args.model]
+
+
+def deploy(args) -> None:
+    ex, B = _example(args)
     k1, k2 = _launch_counters()
     k1.launches = k2.launches = 0
     res = ex.main(["--deploy", "--device", "cuda", "--dtype", args.dtype,
-                   "--batch", str(args.batch)])
+                   "--batch", str(B)])
     conv = res.converged.cpu().numpy()
     obj = res.objective.double().cpu().numpy()
-    out = dict(dtype=args.dtype, batch=args.batch,
+    out = dict(model=args.model, dtype=args.dtype, batch=B,
                launches={"fused_ip": k1.launches,
                          "batched_solve": k2.launches},
                median_obj_converged=(float(np.median(obj[conv]))
@@ -81,12 +93,11 @@ def profile(args) -> None:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    from optimization_dynamics_tpu_torch.examples import cartpole as ex
     from optimization_dynamics_tpu_torch.solver.ilqr_segmented import (
         make_segmented_solver)
 
+    ex, B = _example(args)
     dev = torch.device("cuda")
-    B = 512
     prob, x0, us0, opts = ex.build_deploy_problem(dev)
     opts = dataclasses.replace(opts, max_al_iter=1)
     x0s = ex.deploy_x0s(x0, B)
@@ -133,7 +144,8 @@ def profile(args) -> None:
           "share %.4f" % (prof_wall, len(kern), busy, busy / prof_wall))
     by_name = {}
     for e in kern:
-        name = ("K1 fused_ip" if "fused_ip_kernel" in e["name"] else
+        name = ("K1n fused_ip" if "PlanarPush" in e["name"] else
+                "K1 fused_ip" if "fused_ip_kernel" in e["name"] else
                 "K2 batched_solve" if "batched_solve_kernel" in e["name"]
                 else "torch: " + e["name"][:70])
         n, d = by_name.get(name, (0, 0.0))
@@ -147,9 +159,13 @@ def main(argv=None) -> None:
     sub = ap.add_subparsers(dest="what", required=True)
     d = sub.add_parser("deploy")
     d.add_argument("--dtype", choices=("f32", "f64"), default="f32")
-    d.add_argument("--batch", type=int, default=512)
+    d.add_argument("--batch", type=int, default=None)
     d.add_argument("--lanes", action="store_true")
-    sub.add_parser("profile")
+    pr = sub.add_parser("profile")
+    for p in (d, pr):
+        p.add_argument("--model", choices=("cartpole", "planar_push"),
+                       default="cartpole")
+    pr.set_defaults(batch=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch_measure: needs a CUDA device")
