@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``optimization_dynamics_tpu_torch/ops/
-kernels/csrc`` and runs nine phases, each printing one ``#`` line:
+kernels/csrc`` and runs twelve phases, each printing one ``#`` line:
 
 0. card: ``nvidia-smi`` name and power limit, torch and CUDA versions,
    kernel build time in all and per source, and what ``ptxas`` reported
@@ -65,7 +65,29 @@ kernels/csrc`` and runs nine phases, each printing one ``#`` line:
    (float32, T=26) solved by the segmented executor at B=256 for two AL
    rounds of three inner iterations; outputs finite, the objective below
    the open-loop one on most lanes, K1n and K2 launched; then the
-   four-lane float64 card-against-CPU check of phase 3 on push.
+   four-lane float64 card-against-CPU check of phase 3 on push;
+9. K1a (the fused IP solve at nz=6, acrobot with elbow joint limits)
+   against its plain version at the acrobot deploy IP options (one-stage
+   kappa schedule): 25,600 cold scenarios over the swing-up envelope
+   (the sweep's width B x (T-1) at B=256, numpy seed 40), the same
+   25,600 warm-started one iterate earlier, and 512 cold ones (a rollout
+   step's width, B x 2 alphas); float64: flags and iteration counts
+   identical on every lane, max|dz| <= 1e-12 on every lane; float32:
+   converged count within 1%, max|dq| <= 2e-4; then K2 at (6, 6) on the
+   25,600 IFT systems at K1a's solutions, relative residual <= 1e-12 in
+   float64 and <= 1e-4 in float32; float32 timed;
+10. the acrobot main path at full width: the acrobot deploy problem
+   (float32, T=101) solved by the segmented executor at B=256 for two AL
+   rounds of three inner iterations; outputs finite, the terminal
+   violation below the open-loop rollout's on most lanes (the rest start
+   costs almost nothing and misses the goal by pi), the elbow within its
+   joint limit, K1a and K2 launched; then the four-lane float64
+   card-against-CPU check of phase 3 on the acrobot;
+11. K5 (the loop-overhead probe) through its entry point
+   (``scripts/loop_overhead.py``: each variant timed over 20 launches
+   after a warm-up), then each variant against its plain version,
+   float32 atol 1e-4 (the kernel rounds every product and sum as the
+   plain loop does, so it is expected to match bit for bit).
 
 Each kernel's ``bound_ms`` is the larger of its bytes (each input read
 once, each output written once) at 3.35 TB/s and its operations at the
@@ -796,39 +818,50 @@ def push_batch(B: int, seed: int, device, dtype):
         t(q0), q1_t, t(u), pp.PlanarPushAux(h=0.1))
 
 
-def phase_k1n(device) -> dict:
-    """K1n (fused IP at nz=35) and K2 at (35, 13) against their plain
-    versions: 6,400 cold and warm lanes (the push sweep's width, B x
-    (T-1) at B=256) and 512 cold ones (a rollout step's width), then K2
-    on the 6,400 IFT systems at K1n's cold solutions."""
+def _fused_ip_phase(device, batch, opts, n_sweep: int, seeds,
+                    exact_f64: bool) -> dict:
+    """A fused-IP instantiation (K1n, K1a) and K2 at its IFT shape against
+    their plain versions: ``n_sweep`` cold lanes and the same warm-started
+    one iterate earlier (the sweep's width), 512 cold ones (a rollout
+    step's width), then K2 on the sweep's IFT systems at the kernel's cold
+    solutions. ``batch(B, seed, device, dtype) -> (model, z0s, thetas)``;
+    ``seeds``: (cold, warm, 512). ``exact_f64``: every f64 flag and
+    iteration count identical and max|dz| <= 1e-12 on every lane, else z
+    compared where both converge in the same count (<= 1e-10)."""
     import torch
 
-    from optimization_dynamics_tpu_torch.examples import planar_push as ex
     from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
         batched_solve, batched_solve_plain)
     from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import (
         make_fused_ip_plain, make_fused_ip_solver)
     from optimization_dynamics_tpu_torch.solver.interior_point import (
-        IPOptions, batched_jacobian)
+        batched_jacobian)
 
-    opts = IPOptions(**ex.DEPLOY_IP_ACCEL)
     out = {}
     for dtype in (torch.float64, torch.float32):
         name = "f64" if dtype == torch.float64 else "f32"
-        model, z0c, thc = push_batch(6400, 30, device, dtype)
+        model, z0c, thc = batch(n_sweep, seeds[0], device, dtype)
         kern = make_fused_ip_solver(model, opts, device, dtype)
         plain = make_fused_ip_plain(model, opts, device, dtype)
-        z0w, thw = warm_batch(kern, model, z0c, thc, 31)
-        _, z0s, ths = push_batch(512, 32, device, dtype)
-        cases = {"cold_6400": (z0c, thc), "warm_6400": (z0w, thw),
-                 "cold_512": (z0s, ths)}
+        z0w, thw = warm_batch(kern, model, z0c, thc, seeds[1])
+        _, z0s, ths = batch(512, seeds[2], device, dtype)
+        cases = {"cold_%d" % n_sweep: (z0c, thc),
+                 "warm_%d" % n_sweep: (z0w, thw), "cold_512": (z0s, ths)}
         res = {}
         for case, (z0, th) in cases.items():
             sk, sp = kern(z0, th), plain(z0, th)
             torch.cuda.synchronize()
-            res[case] = _k1_agreement(sk, sp, dtype, nq=model.nq,
-                                      f32_tol=2e-4, min_same_iters=None)
+            res[case] = _k1_agreement(
+                sk, sp, dtype, nq=model.nq, f32_tol=2e-4,
+                min_same_iters=1.0 if exact_f64 else None)
             res[case]["mean_iters"] = float(sk.iterations.float().mean())
+            if dtype == torch.float64 and exact_f64:
+                _check(res[case]["same_conv"] == 1.0, "%s f64 %s flags "
+                       "differ on some lane" % (model.kernel, case))
+                dz = float((sk.z - sp.z).abs().max())
+                _check(dz <= 1e-12, "%s f64 %s max|dz| %.3e"
+                       % (model.kernel, case, dz))
+                res[case]["max_dz_all_lanes"] = dz
             if dtype == torch.float32:
                 res[case]["ms"] = _cuda_ms(lambda: kern(z0, th))
                 res[case]["plain_ms"] = _cuda_ms(lambda: plain(z0, th),
@@ -838,22 +871,22 @@ def phase_k1n(device) -> dict:
                     _ip_flops(model, opts, int(sk.iterations.sum()),
                               z0.shape[0])))
 
-        # K2 on the IFT systems of the sweep at K1n's cold solutions
+        # K2 on the IFT systems of the sweep at the kernel's cold solutions
         zs = kern(z0c, thc).z
         A = batched_jacobian(model.residual, 0)(zs, thc)
         b = batched_jacobian(model.residual, 1)(zs, thc)
+        n, k = A.shape[1], b.shape[2]
         xk, xp = batched_solve(A, b), batched_solve_plain(A, b)
         torch.cuda.synchronize()
         rk = _rel_residual(A, xk, b)
-        _check(bool(torch.isfinite(xk).all()), "K2 %s (35, 13): x not "
-               "finite" % name)
+        _check(bool(torch.isfinite(xk).all()), "K2 %s (%d, %d): x not "
+               "finite" % (name, n, k))
         _check(rk <= (1e-12 if dtype == torch.float64 else 1e-4),
-               "K2 %s (35, 13) relative residual %.3e" % (name, rk))
+               "K2 %s (%d, %d) relative residual %.3e" % (name, n, k, rk))
         dx = float((xk - xp).abs().max())
         k2 = dict(rel_res=rk, rel_res_plain=_rel_residual(A, xp, b),
                   max_dx=dx, rel_dx=dx / float(xp.abs().max()))
         if dtype == torch.float32:
-            n, k = A.shape[1], b.shape[2]
             k2["ms"] = _cuda_ms(lambda: batched_solve(A, b))
             k2["plain_ms"] = _cuda_ms(lambda: batched_solve_plain(A, b))
             # the one PyTorch call that computes the same function (timed
@@ -862,9 +895,23 @@ def phase_k1n(device) -> dict:
             k2.update(_bound(2 * _nbytes(b) + _nbytes(A),
                              A.shape[0] * (4.0 / 3.0 * n ** 3
                                            + 3 * n ** 2 * k)))
-        res["k2_ift_6400"] = k2
+        res["k2_ift_%d" % n_sweep] = k2
         out[name] = res
     return out
+
+
+def phase_k1n(device) -> dict:
+    """K1n (fused IP at nz=35) and K2 at (35, 13) against their plain
+    versions: 6,400 cold and warm lanes (the push sweep's width, B x
+    (T-1) at B=256) and 512 cold ones (a rollout step's width), then K2
+    on the 6,400 IFT systems at K1n's cold solutions."""
+    from optimization_dynamics_tpu_torch.examples import planar_push as ex
+    from optimization_dynamics_tpu_torch.solver.interior_point import (
+        IPOptions)
+
+    return _fused_ip_phase(device, push_batch,
+                           IPOptions(**ex.DEPLOY_IP_ACCEL), 6400,
+                           (30, 31, 32), exact_f64=False)
 
 
 def phase_push(device) -> dict:
@@ -945,6 +992,154 @@ def phase_push(device) -> dict:
     return out
 
 
+def acrobot_ip_options():
+    from optimization_dynamics_tpu_torch.examples import acrobot as ex
+    from optimization_dynamics_tpu_torch.solver.interior_point import (
+        IPOptions)
+
+    return IPOptions(**ex.DEPLOY_IP_ACCEL, **ex.DEPLOY_KAPPA_SCHEDULE)
+
+
+def phase_k1a(device) -> dict:
+    """K1a (fused IP at nz=6, acrobot) and K2 at (6, 6) against their plain
+    versions: 25,600 cold and warm lanes (the sweep's width, B x (T-1) at
+    B=256) and 512 cold ones (a rollout step's width, B x 2 alphas), then
+    K2 on the 25,600 IFT systems at K1a's cold solutions; every f64 flag
+    and count identical."""
+    from optimization_dynamics_tpu_torch.examples import acrobot as ex
+
+    return _fused_ip_phase(device, ex.envelope_batch, acrobot_ip_options(),
+                           25600, (40, 41, 42), exact_f64=True)
+
+
+def phase_acrobot(device) -> dict:
+    """The acrobot deploy solve at full width (B=256, T=101, float32) for
+    two AL rounds of three inner iterations, then the four-lane float64
+    card-against-CPU check."""
+    import torch
+
+    from optimization_dynamics_tpu_torch.examples import acrobot as ex
+    from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
+        batched_solve)
+    from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import fused_ip
+    from optimization_dynamics_tpu_torch.solver.ilqr_batched import (
+        make_phases)
+    from optimization_dynamics_tpu_torch.solver.ilqr_segmented import (
+        make_segmented_solver)
+
+    B = 256
+    prob, x0, us0, opts = ex.build_deploy_problem(device)
+    _check(x0.dtype == torch.float32, "acrobot deploy dtype on the card is "
+           "f32")
+    opts = dataclasses.replace(opts, max_al_iter=2)
+    x0s = ex.deploy_x0s(x0, B, seed=0)
+    ph = make_phases(prob, opts, B, x0.dtype, device)
+    uss0 = us0[None].expand(B, -1, -1)
+    xss0, _ = ph.rollout_open(x0s, uss0)
+    # hanging at rest costs almost nothing and misses the upright goal by
+    # pi, which is a terminal equality constraint, not a cost: the swing-up
+    # raises the smooth objective and lowers the terminal violation
+    obj0 = ph.smooth_cost(xss0, uss0)
+    vio0 = ph.con_violation(xss0, uss0)
+    solve = make_segmented_solver(prob, opts, B, x0.dtype, device,
+                                  max_iter_schedule=[3, 3],
+                                  al_stall_rounds=ex.DEPLOY_AL_STALL_ROUNDS)
+
+    counters = {"fused_ip_acrobot": fused_ip,
+                "batched_solve_n6_k6": batched_solve}
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve(x0s, us0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+
+    for name in ("xs", "us", "objective", "al_objective",
+                 "constraint_violation", "lamT", "rho"):
+        _check(bool(torch.isfinite(getattr(res, name)).all()),
+               "acrobot path: %s not finite" % name)
+    _check(tuple(res.xs.shape) == (B, ex.T, ex.NX), "acrobot xs shape")
+    fell = float((res.constraint_violation < vio0).float().mean())
+    _check(fell >= 0.5, "acrobot terminal violation fell on only %.3f of "
+           "lanes" % fell)
+    for k, n in launches.items():
+        _check(n > 0, "%s not launched on the acrobot path" % k)
+    elbow = float(res.xs[..., 3].abs().max())
+    _check(elbow <= 0.5 * np.pi + 1e-3, "acrobot elbow %.6f past its "
+           "joint limit" % elbow)
+    out = dict(wall_s=wall, launches=launches, stats=dict(solve.stats),
+               converged=int(res.converged.sum()), batch=B,
+               mean_objective=float(res.objective.mean()),
+               mean_initial_objective=float(obj0.mean()),
+               violation_fell_frac=fell,
+               mean_initial_violation=float(vio0.mean()),
+               mean_violation=float(res.constraint_violation.mean()),
+               max_violation=float(res.constraint_violation.max()),
+               max_elbow=elbow,
+               mean_inner_iters=float(res.iterations.float().mean()))
+
+    # small-input agreement: float64 on the card (K1a + K2) against the
+    # same solve on the CPU (plain versions), accelerator IP settings
+    small = []
+    for dev in (device, torch.device("cpu")):
+        p, x0d, usd, o = ex.build_deploy_problem(
+            dev, dtype=torch.float64, accelerator_ip=True)
+        o = dataclasses.replace(o, max_al_iter=1)
+        s = make_segmented_solver(p, o, 4, torch.float64, dev,
+                                  compact=False, max_iter_schedule=[2])
+        r = s(ex.deploy_x0s(x0d, 4, seed=0), usd)
+        small.append((r.objective.cpu(), r.us.cpu()))
+    (obj_card, us_card), (obj_cpu, us_cpu) = small
+    dobj = float((obj_card / obj_cpu - 1).abs().max())
+    dus = float((us_card - us_cpu).abs().max())
+    _check(dobj <= 1e-6 and dus <= 1e-6,
+           "acrobot small f64 card vs CPU: rel dobj %.3e, max dus %.3e"
+           % (dobj, dus))
+    out["small_f64_vs_cpu"] = dict(rel_dobj=dobj, max_dus=dus)
+    return out
+
+
+def phase_k5(device) -> dict:
+    """K5 (the loop-overhead probe) through its entry point, which times
+    each variant (20 launches after one warm-up), then each variant
+    against its plain version, float32 atol 1e-4."""
+    import torch
+
+    from optimization_dynamics_tpu_torch.ops.kernels.loop_overhead import (
+        N_ITER, VARIANTS, loop_overhead, loop_overhead_plain)
+    from optimization_dynamics_tpu_torch.scripts import (
+        loop_overhead as script)
+
+    loop_overhead.launches = 0
+    torch.cuda.synchronize()
+    ms = script.main([])
+    torch.cuda.synchronize()
+    out = dict(launches=loop_overhead.launches, ms=ms)
+    x = script.probe_input(device)
+    # bytes: the carry read once and written once; operations per
+    # logical iteration: a scale, a shift and an add an element, rows - 1
+    # compares for each column max and one scale of each max
+    rows, cols = x.shape
+    bound = _bound(2 * _nbytes(x),
+                   N_ITER * (3 * x.numel() + (rows - 1) * cols + cols))
+    for variant in VARIANTS:
+        got = loop_overhead(x, variant)
+        ref = loop_overhead_plain(x, variant)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        _check(bool(torch.isfinite(got).all()) and err <= 1e-4,
+               "K5 %s max|dz| %.3e" % (variant, err))
+        out[variant] = dict(
+            max_abs_err=err, bitwise=bool(torch.equal(got, ref)),
+            ms=ms[variant],
+            plain_ms=_cuda_ms(lambda: loop_overhead_plain(x, variant),
+                              reps=1),
+            us_per_iteration=1e3 * ms[variant] / N_ITER, **bound)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -990,6 +1185,14 @@ def main() -> int:
           % json.dumps(k1n), flush=True)
     pu = phase_push(device)
     print("# phase 8 planar-push main path: %s" % json.dumps(pu),
+          flush=True)
+    k1a = phase_k1a(device)
+    print("# phase 9 K1a fused_ip nz=6 and K2 (6, 6) vs plain: %s"
+          % json.dumps(k1a), flush=True)
+    ac = phase_acrobot(device)
+    print("# phase 10 acrobot main path: %s" % json.dumps(ac), flush=True)
+    k5 = phase_k5(device)
+    print("# phase 11 K5 loop_overhead vs plain: %s" % json.dumps(k5),
           flush=True)
 
     src = "optimization_dynamics_tpu_torch/ops/kernels/csrc/"
@@ -1047,6 +1250,35 @@ def main() -> int:
              max_abs_err=k2p["max_dx"], ms=k2p["ms"],
              plain_ms=k2p["plain_ms"], bound_ms=k2p["bound_ms"],
              bound_by=k2p["bound_by"], library_ms=k2p["library_ms"]),
+    ]
+    k1at, k2a = k1a["f32"]["warm_25600"], k1a["f32"]["k2_ift_25600"]
+    k5t = k5["plain"]
+    kernels += [
+        dict(name="fused_ip_acrobot", route="cuda",
+             source=src + "fused_ip_acrobot.cu",
+             replaces=tpu + "fused_ip.py:410",
+             launches=ac["launches"]["fused_ip_acrobot"],
+             max_abs_err=max(c["max_dq"] for k, c in k1a["f32"].items()
+                             if k != "k2_ift_25600"),
+             ms=k1at["ms"], plain_ms=k1at["plain_ms"],
+             bound_ms=k1at["bound_ms"], bound_by=k1at["bound_by"],
+             library_ms=None),
+        dict(name="batched_solve_n6_k6", route="cuda",
+             source=src + "batched_solve.cu",
+             replaces=tpu + "batched_solve.py:119",
+             launches=ac["launches"]["batched_solve_n6_k6"],
+             max_abs_err=k2a["max_dx"], ms=k2a["ms"],
+             plain_ms=k2a["plain_ms"], bound_ms=k2a["bound_ms"],
+             bound_by=k2a["bound_by"], library_ms=k2a["library_ms"]),
+        dict(name="loop_overhead", route="cuda",
+             source=src + "loop_overhead.cu",
+             replaces="scripts/loop_overhead_r5.py:50,92",
+             launches=k5["launches"],
+             max_abs_err=max(k5[v]["max_abs_err"] for v in
+                             ("plain", "reps8", "while")),
+             ms=k5t["ms"], plain_ms=k5t["plain_ms"],
+             bound_ms=k5t["bound_ms"], bound_by=k5t["bound_by"],
+             library_ms=None),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

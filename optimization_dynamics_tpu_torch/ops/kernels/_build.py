@@ -53,9 +53,11 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 # below: a new instantiation is one line here plus its line in the .cu
 # file.
 FUSED_IP_FUNCTORS = {"cartpole_friction": (10, 8),  # name -> (nz, ntheta)
-                     "planar_push": (35, 13)}
+                     "planar_push": (35, 13),
+                     "acrobot_impact": (6, 6)}
 FUSED_ROLLOUT_FUNCTORS = {"cartpole_friction": (2, 1)}  # name -> (nq, nu)
-BATCHED_SOLVE_SHAPES = frozenset({(10, 8), (10, 1), (35, 13)})  # (n, k)
+BATCHED_SOLVE_SHAPES = frozenset({(10, 8), (10, 1), (35, 13), (6, 6),
+                                  (2, 1), (2, 6)})  # (n, k)
 RICCATI_SHAPES = frozenset({(4, 1), (4, 3), (6, 3), (10, 4)})  # (nx, nu)
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -87,6 +89,7 @@ SIGNATURES = {
        for n, k in BATCHED_SOLVE_SHAPES for dt in SUFFIX},
     **{riccati_symbol(nx, nu, dt): [_VP] * 14 + [_INT, _INT, _VP]
        for nx, nu in RICCATI_SHAPES for dt in SUFFIX},
+    "odt_loop_overhead": [_VP, _VP, _INT, _INT, _VP],
 }
 
 

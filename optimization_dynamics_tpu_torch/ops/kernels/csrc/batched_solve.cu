@@ -6,7 +6,9 @@
 //
 // Layout: A (B, N, N), b and x (B, N, K), row-major and contiguous.
 // Shapes: (10, 8) and (10, 1) for cartpole's IFT and Newton solves, (35,
-// 13) for planar push's IFT solve; above UNROLL_MAX_N (odt_common.cuh)
+// 13) for planar push's IFT solve, (6, 6) for the acrobot's IFT solve and
+// (2, 1), (2, 6) for the Newton and IFT solves of the acrobot without
+// joint limits (no fused-IP functor); above UNROLL_MAX_N (odt_common.cuh)
 // the QR's loops stay rolled and the system lives in local memory.
 #include <cstdint>
 
@@ -69,4 +71,10 @@ ODT_BATCHED_SOLVE(10, 1, f32, float)
 ODT_BATCHED_SOLVE(10, 1, f64, double)
 ODT_BATCHED_SOLVE(35, 13, f32, float)
 ODT_BATCHED_SOLVE(35, 13, f64, double)
+ODT_BATCHED_SOLVE(6, 6, f32, float)
+ODT_BATCHED_SOLVE(6, 6, f64, double)
+ODT_BATCHED_SOLVE(2, 1, f32, float)
+ODT_BATCHED_SOLVE(2, 1, f64, double)
+ODT_BATCHED_SOLVE(2, 6, f32, float)
+ODT_BATCHED_SOLVE(2, 6, f64, double)
 }  // extern "C"

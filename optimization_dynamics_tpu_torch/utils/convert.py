@@ -14,6 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from optimization_dynamics_tpu_torch.models.acrobot import (AcrobotAux,
+                                                            AcrobotParams)
 from optimization_dynamics_tpu_torch.models.cartpole import (CartpoleAux,
                                                              CartpoleParams)
 from optimization_dynamics_tpu_torch.models.planar_push import (
@@ -24,7 +26,7 @@ from optimization_dynamics_tpu_torch.solver.ilqr import ILQROptions
 from optimization_dynamics_tpu_torch.solver.interior_point import IPOptions
 
 __all__ = ["cartpole_params", "cartpole_aux", "planar_push_params",
-           "planar_push_aux", "ip_options", "ilqr_options", "al_state"]
+           "planar_push_aux", "acrobot_params", "acrobot_aux", "ip_options", "ilqr_options", "al_state"]
 
 
 def cartpole_params(p) -> CartpoleParams:
@@ -51,6 +53,19 @@ def planar_push_aux(a) -> PlanarPushAux:
     """The port's ``PlanarPushAux`` from the reference's (the timestep as
     a Python float)."""
     return PlanarPushAux(h=float(np.asarray(a.h)))
+
+
+def acrobot_params(p) -> AcrobotParams:
+    """The port's ``AcrobotParams`` from the reference's."""
+    return AcrobotParams(*(float(getattr(p, f))
+                           for f in AcrobotParams._fields))
+
+
+def acrobot_aux(a, device, dtype) -> AcrobotAux:
+    """The port's ``AcrobotAux`` from the reference's: the timestep as a
+    0-dim tensor of ``dtype`` on ``device``."""
+    return AcrobotAux(h=torch.as_tensor(np.array(a.h), dtype=dtype,
+                                        device=device))
 
 
 def _options(src, cls, renames=None):

@@ -20,7 +20,11 @@ tolerance). K1n (the fused IP solve at nz=35, planar push) as K1, with
 float32 configurations within 2e-4 (the reference's tolerance for push),
 and z compared in float64 where both converge in the same iteration
 count; K2 at (35, 13) within 1e-10 relative in float64 and 1e-3 in
-float32.
+float32. K1a (the fused IP solve at nz=6, acrobot) as K1 in float64 with
+identical flags and iteration counts; K2 at (6, 6), (2, 1) and (2, 6) as
+at (10, 8). K5 (the loop-overhead probe) within float32 atol 1e-4 of its
+plain version in every variant (it rounds each product and sum as the
+plain loop does, so it is expected to agree bit for bit).
 """
 
 import numpy as np
@@ -30,8 +34,10 @@ import torch
 from optimization_dynamics_tpu_torch.examples.cartpole import (
     DEPLOY_IP_ACCEL,
 )
+from optimization_dynamics_tpu_torch.examples import acrobot as acrobot_ex
 from optimization_dynamics_tpu_torch.examples import planar_push as push_ex
-from optimization_dynamics_tpu_torch.models import cartpole, planar_push
+from optimization_dynamics_tpu_torch.models import cartpole
+from optimization_dynamics_tpu_torch.models import planar_push
 from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
     batched_solve,
     batched_solve_plain,
@@ -40,6 +46,11 @@ from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import (
     fused_ip,
     make_fused_ip_plain,
     make_fused_ip_solver,
+)
+from optimization_dynamics_tpu_torch.ops.kernels.loop_overhead import (
+    VARIANTS,
+    loop_overhead,
+    loop_overhead_plain,
 )
 from optimization_dynamics_tpu_torch.ops.kernels.fused_rollout import (
     fused_rollout,
@@ -370,3 +381,86 @@ def test_push_wrappers_raise_on_wrong_functor_or_shape(card):
     with pytest.raises(ValueError):
         batched_solve(torch.zeros((4, 35, 35), device=card),
                       torch.zeros((4, 35, 12), device=card))
+
+
+ACROBOT_OPTS = IPOptions(**acrobot_ex.DEPLOY_IP_ACCEL,
+                         **acrobot_ex.DEPLOY_KAPPA_SCHEDULE)
+
+
+@pytest.mark.parametrize("start", ["cold", "warm"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fused_ip_acrobot_kernel_matches_plain(card, dtype, start):
+    model, z0s, ths = acrobot_ex.envelope_batch(2000, 21, card, dtype)
+    kern = make_fused_ip_solver(model, ACROBOT_OPTS, card, dtype)
+    if start == "warm":
+        z0s = _warm(kern, model, z0s, ths, 22)
+    before = fused_ip.launches
+    sk = kern(z0s, ths)
+    assert fused_ip.launches == before + 1
+    sp = make_fused_ip_plain(model, ACROBOT_OPTS, card, dtype)(z0s, ths)
+    ck, cp = sk.converged.cpu().numpy(), sp.converged.cpu().numpy()
+    both = ck & cp
+    assert both.sum() > 0.9 * len(ck)
+    if dtype == torch.float64:
+        np.testing.assert_array_equal(ck, cp)
+        assert torch.equal(sk.iterations, sp.iterations)
+        assert float((sk.z - sp.z).abs().max()) <= 1e-12
+    else:
+        assert abs(int(ck.sum()) - int(cp.sum())) <= 0.01 * len(ck)
+        dq = (sk.z - sp.z)[:, :2].abs().cpu().numpy()[both]
+        assert dq.max() <= 2e-4
+
+
+def test_fused_ip_acrobot_kernel_ragged_batch(card):
+    """Batches that are not a multiple of the 128-thread block."""
+    for B in (1, 5, 129):
+        model, z0s, ths = acrobot_ex.envelope_batch(
+            B, 23, card, torch.float64)
+        sk = make_fused_ip_solver(model, ACROBOT_OPTS, card, torch.float64)(
+            z0s, ths)
+        sp = make_fused_ip_plain(model, ACROBOT_OPTS, card, torch.float64)(
+            z0s, ths)
+        assert tuple(sk.z.shape) == (B, 6)
+        np.testing.assert_array_equal(sk.converged.cpu().numpy(),
+                                      sp.converged.cpu().numpy())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.float64, 1e-10)])
+@pytest.mark.parametrize("n,k", [(6, 6), (2, 1), (2, 6)])
+def test_batched_solve_acrobot_shapes_match_plain(card, dtype, tol, n, k):
+    rng = np.random.default_rng(24)
+    A = rng.standard_normal((1000, n, n)) + 4.0 * np.eye(n)
+    b = rng.standard_normal((1000, n, k))
+    At = torch.as_tensor(A, dtype=dtype, device=card)
+    bt = torch.as_tensor(b, dtype=dtype, device=card)
+    before = batched_solve.launches
+    x = batched_solve(At, bt)
+    assert batched_solve.launches == before + 1
+    xp = batched_solve_plain(At, bt)
+    assert float((x - xp).abs().amax() / xp.abs().amax()) <= tol
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_loop_overhead_kernel_matches_plain(card, variant):
+    x = torch.as_tensor(np.random.RandomState(0).rand(10, 128),
+                        dtype=torch.float32, device=card)
+    before = loop_overhead.launches
+    got = loop_overhead(x, variant)
+    assert loop_overhead.launches == before + 1
+    ref = loop_overhead_plain(x, variant)
+    assert float((got - ref).abs().max()) <= 1e-4
+    # the while loop's runtime trip count
+    short = loop_overhead(x, "while", n_iter=7)
+    assert float((short - loop_overhead_plain(x, "while", 7)).abs().max()) \
+        <= 1e-4
+
+
+def test_loop_overhead_wrapper_raises_on_unsupported_input(card):
+    with pytest.raises(ValueError):
+        loop_overhead(torch.zeros((10, 64), device=card), "plain")
+    with pytest.raises(ValueError):
+        loop_overhead(torch.zeros((10, 128), dtype=torch.float64,
+                                  device=card), "plain")
+    with pytest.raises(ValueError):
+        loop_overhead(torch.zeros((10, 128), device=card), "unrolled")

@@ -1,4 +1,5 @@
-"""Card measurements of the port's deploy solves (cartpole, planar push).
+"""Card measurements of the port's deploy solves (cartpole, planar push,
+acrobot).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -7,13 +8,16 @@ Run from the repository root on a machine with one CUDA card:
     python -m tools.torch_measure profile
     python -m tools.torch_measure deploy --model planar_push
     python -m tools.torch_measure profile --model planar_push
+    python -m tools.torch_measure deploy --model acrobot [--dtype f64]
+    python -m tools.torch_measure profile --model acrobot
 
 ``deploy`` runs the example's deploy solve (``examples/cartpole.py`` or
-``examples/planar_push.py``, ``main --deploy``), which prints its own
-summary, then prints one JSON line: the K1 (K1n for push) and K2
-launches of the solve, the median converged objective and, with
-``--lanes``, each lane's flag, objective and inner iterations. The batch
-defaults to the deploy width: 512 for cartpole, 256 for push.
+``examples/planar_push.py``, ``examples/acrobot.py``, ``main
+--deploy``), which prints its own summary, then prints one JSON line: the
+K1 (K1n for push, K1a for acrobot) and K2 launches of the solve, the
+median converged objective and, with ``--lanes``, each lane's flag,
+objective and inner iterations. The batch defaults to the deploy width:
+512 for cartpole, 256 for push and acrobot.
 
 ``profile`` solves one AL round of five inner iterations at the deploy
 width in float32 three times after a warm-up: unprofiled (wall), under
@@ -52,7 +56,8 @@ def _example(args):
 
     ex = importlib.import_module("optimization_dynamics_tpu_torch.examples."
                                  + args.model)
-    return ex, args.batch or {"cartpole": 512, "planar_push": 256}[args.model]
+    return ex, args.batch or {"cartpole": 512, "planar_push": 256,
+                              "acrobot": 256}[args.model]
 
 
 def deploy(args) -> None:
@@ -145,6 +150,7 @@ def profile(args) -> None:
     by_name = {}
     for e in kern:
         name = ("K1n fused_ip" if "PlanarPush" in e["name"] else
+                "K1a fused_ip" if "AcrobotImpact" in e["name"] else
                 "K1 fused_ip" if "fused_ip_kernel" in e["name"] else
                 "K2 batched_solve" if "batched_solve_kernel" in e["name"]
                 else "torch: " + e["name"][:70])
@@ -163,7 +169,8 @@ def main(argv=None) -> None:
     d.add_argument("--lanes", action="store_true")
     pr = sub.add_parser("profile")
     for p in (d, pr):
-        p.add_argument("--model", choices=("cartpole", "planar_push"),
+        p.add_argument("--model",
+                       choices=("cartpole", "planar_push", "acrobot"),
                        default="cartpole")
     pr.set_defaults(batch=None)
     args = ap.parse_args(argv)
