@@ -8,16 +8,21 @@ kernels/csrc`` and runs twelve phases, each printing one ``#`` line:
 
 0. card: ``nvidia-smi`` name and power limit, torch and CUDA versions,
    kernel build time in all and per source, and what ``ptxas`` reported
-   per kernel (registers, stack frame, spill bytes);
+   per kernel (registers, static shared memory, stack frame, spill
+   bytes);
 1. K1 (fused IP solve) against its plain PyTorch version on the card:
    cartpole friction at the deploy IP options, on 4096 cold
    swing-up-envelope scenarios (numpy seed 0), on 25,600 cold ones (the
    derivative sweep's width) and on the same 25,600 warm-started from
-   K1's solutions one iterate earlier (the sweep's warm starts); in
+   K1's solutions one iterate earlier (the sweep's warm starts), both
+   through the per-thread kernel, and on 1,024 cold ones (a rollout
+   step's width, B x 2 alphas at B=512, seed 4) and the 4096 through the
+   tile kernel; in
    float64 (flags identical on >= 99.5% of lanes, iteration counts on
    >= 99%, max|dz| <= 1e-10 where both converge: the kernel sums in
    sequence, torch in another order, so rare ties break differently) and
-   float32 (converged count within 1%, max|dq| <= 1e-4); float32 timed;
+   float32 (converged count within 1%, max|dq| <= 1e-4); float32 timed,
+   each case with its bound;
 2. K2 (batched QR solve) against its plain version: the 25,600 IFT
    systems of a derivative sweep (10x10, 8 right-hand sides, Jacobians at
    K1 solutions) and KKT-like saddle systems, relative residual <= 1e-5
@@ -26,8 +31,10 @@ kernels/csrc`` and runs twelve phases, each printing one ``#`` line:
 3. the main path at full width: the cartpole deploy problem (float32,
    T=51) solved by the segmented executor at B=512 for two AL rounds of
    three inner iterations; outputs finite, the objective below the
-   initial open-loop rollout's on most lanes, both kernels' launch
-   counters above zero; then a small-input check: four lanes in float64
+   initial open-loop rollout's on most lanes, the launch counters of K2
+   and of both K1 kernels above zero (the tile kernel by the rollout
+   steps, the per-thread one by the sweeps); then a small-input check:
+   four lanes in float64
    on the card against the same solve on the CPU;
 4. K3 (Riccati backward pass) against its plain version: random LQR data
    (numpy seeds) at the deploy shape (nx=4, nu=1, T=51) at B=512 and
@@ -48,9 +55,10 @@ kernels/csrc`` and runs twelve phases, each printing one ``#`` line:
    timed;
 6. the slice's main path: the phase-3 solve with K4 for every rollout and
    K3 for every backward pass; outputs finite, the objective below the
-   open-loop one on most lanes, K1, K2, K3 and K4 launched, and K1
-   launched once per backward pass (by the derivative sweeps only, never
-   per rollout step); then the four-lane float64 card-against-CPU check
+   open-loop one on most lanes, K1, K2, K3 and K4 launched, and K1 (either
+   kernel) launched once per backward pass (by the derivative sweeps
+   only, never per rollout step); then the four-lane float64
+   card-against-CPU check
    of phase 3 with both kernels on;
 7. K1n (the fused IP solve at nz=35, planar push) against its plain
    version at the push deploy IP options: 6,400 cold scenarios around the
@@ -59,8 +67,10 @@ kernels/csrc`` and runs twelve phases, each printing one ``#`` line:
    width); float64: flags identical on >= 99.5% of lanes, max|dz| <=
    1e-10 where both converge in the same iteration count; float32:
    converged count within 1%, max|dq| <= 2e-4; then K2 at (35, 13) on the
-   6,400 IFT systems at K1n's solutions, relative residual <= 1e-12 in
-   float64 and <= 1e-4 in float32; float32 timed;
+   6,400 IFT systems at K1n's solutions (one 64-thread block a system),
+   relative residual <= 1e-12 in float64 and <= 1e-4 in float32; float32
+   timed beside ``torch.linalg.solve`` on the same systems, with its share
+   of bound;
 8. the planar-push main path at full width: the push deploy problem
    (float32, T=26) solved by the segmented executor at B=256 for two AL
    rounds of three inner iterations; outputs finite, the objective below
@@ -89,6 +99,17 @@ kernels/csrc`` and runs twelve phases, each printing one ``#`` line:
    float32 atol 1e-4 (the kernel rounds every product and sum as the
    plain loop does, so it is expected to match bit for bit).
 
+The kernels' designs are in their wrappers' docstrings
+(``ops/kernels/*.py``). K1 (cartpole) has two kernels, picked by the
+launch's width: up to 16,384 scenarios (the rollout steps and the
+narrowed sweeps) one scenario runs on a 16-thread tile, four tiles a
+block: thread j builds the Newton matrix's column j with one dual-number
+residual, the tile solves it with a column a thread
+(``csrc/qr_group.cuh``) and runs the line search's candidates in
+parallel; wider launches (the full sweeps) run one scenario a thread. K2 above 16 unknowns runs one system on a 64-thread block, a
+column a thread; at or below 16, one thread a system. K1n, K1a, K3, K4
+and K5 run one scenario (or one column, K5) a thread.
+
 Each kernel's ``bound_ms`` is the larger of its bytes (each input read
 once, each output written once) at 3.35 TB/s and its operations at the
 67 TFLOP/s of float32 outside the tensor cores (the H100 SXM data sheet),
@@ -100,7 +121,10 @@ more residual, where R is the residual's arithmetic counted on one lane
 of its plain version.
 
 Any failure raises and the exit code is non-zero. Before the last line it
-prints the ``nvidia-smi`` line and a JSON line of the kernels; the last
+prints the ``nvidia-smi`` line and a JSON line of the kernels (``fused_ip``
+is K1's per-thread kernel, timed on 25,600 warm lanes, with K1's time at
+1,024 cold lanes as ``ms_cold_1024``; ``fused_ip_tile`` its tile kernel,
+timed on those 1,024); the last
 line is ``{"ok": true, "device": {...}}``. It needs one card and no
 network.
 """
@@ -109,40 +133,17 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import subprocess
 import sys
 import time
 
 import numpy as np
 
+from optimization_dynamics_tpu_torch.utils.measure import (
+    cuda_ms, envelope_batch, nvidia_smi, push_batch, rel_residual,
+    warm_batch)
+
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
-
-
-def _nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def _cuda_ms(fn, reps: int = 5) -> float:
-    """Median milliseconds of ``fn()`` on the card, after one warm-up."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
 
 
 def _check(cond: bool, what: str) -> None:
@@ -204,26 +205,6 @@ def _ip_flops(model, opts, iterations: int, solves: int) -> float:
     return iterations * per_iter + solves * R
 
 
-def envelope_batch(B: int, seed: int, device, dtype):
-    """Cold cartpole-friction solves over the swing-up envelope: |q| up to
-    ~2, angles +-pi, u +-3 sigma (the distribution of the reference's
-    fused-vs-XLA parity test), from a numpy seed."""
-    import torch
-
-    from optimization_dynamics_tpu_torch.models import cartpole
-
-    rng = np.random.default_rng(seed)
-    q1 = np.stack([2.0 * rng.standard_normal(B),
-                   np.pi * rng.standard_normal(B)], axis=1)
-    q0 = q1 - 0.05 * rng.standard_normal((B, 2))
-    u = 3.0 * rng.standard_normal((B, 1))
-    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
-    model = cartpole.friction_model()
-    aux = cartpole.CartpoleAux(h=0.05, friction=t([0.35, 0.35]))
-    q1_t = t(q1)
-    return model, model.init_z(q1_t), model.theta_fn(t(q0), q1_t, t(u), aux)
-
-
 def deploy_ip_options():
     from optimization_dynamics_tpu_torch.examples.cartpole import (
         DEPLOY_IP_ACCEL)
@@ -231,20 +212,6 @@ def deploy_ip_options():
         IPOptions)
 
     return IPOptions(**DEPLOY_IP_ACCEL)
-
-
-def warm_batch(kern, model, z0s, ths, seed: int):
-    """The derivative sweep's warm starts: z0s are K1's solutions of the
-    same lanes one iterate earlier (the control moved by 0.05 N(0, 1))."""
-    import torch
-
-    rng = np.random.default_rng(seed)
-    du = torch.as_tensor(
-        0.05 * rng.standard_normal((ths.shape[0], len(model.th_u))),
-        dtype=ths.dtype, device=ths.device)
-    prev = ths.clone()
-    prev[:, list(model.th_u)] += du
-    return kern(z0s, prev).z, ths
 
 
 def _k1_agreement(sk, sp, dtype, nq: int = 2, f32_tol: float = 1e-4,
@@ -302,16 +269,17 @@ def phase_k1(device) -> dict:
         plain = make_fused_ip_plain(model, opts, device, dtype)
         _, z0c, thc = envelope_batch(25600, 1, device, dtype)
         z0w, thw = warm_batch(kern, model, z0c, thc, 3)
+        _, z0r, thr = envelope_batch(1024, 4, device, dtype)
         cases = {"cold_4096": (z0s, ths), "cold_25600": (z0c, thc),
-                 "warm_25600": (z0w, thw)}
+                 "warm_25600": (z0w, thw), "cold_1024": (z0r, thr)}
         res = {}
         for case, (z0, th) in cases.items():
             sk, sp = kern(z0, th), plain(z0, th)
             torch.cuda.synchronize()
             res[case] = _k1_agreement(sk, sp, dtype)
             if dtype == torch.float32:
-                res[case]["ms"] = _cuda_ms(lambda: kern(z0, th))
-                res[case]["plain_ms"] = _cuda_ms(lambda: plain(z0, th),
+                res[case]["ms"] = cuda_ms(lambda: kern(z0, th))
+                res[case]["plain_ms"] = cuda_ms(lambda: plain(z0, th),
                                                  reps=3)
                 res[case].update(_bound(
                     _nbytes(z0, th, sk.z) + 4 * z0.shape[0] * 4,
@@ -353,16 +321,6 @@ def _saddle(B: int, k: int, seed: int, device, dtype):
     return t(A), t(b)
 
 
-def _rel_residual(A, x, b) -> float:
-    """max over systems of |A x - b|_inf / (|A|_inf |x|_inf + |b|_inf),
-    evaluated in float64."""
-    A, x, b = A.double(), x.double(), b.double()
-    r = (A @ x - b).abs().amax(dim=(1, 2))
-    scale = (A.abs().sum(dim=2).amax(dim=1) * x.abs().amax(dim=(1, 2))
-             + b.abs().amax(dim=(1, 2)))
-    return float((r / scale).max())
-
-
 def phase_k2(device) -> dict:
     import torch
 
@@ -383,7 +341,7 @@ def phase_k2(device) -> dict:
             xk = batched_solve(A, b)
             xp = batched_solve_plain(A, b)
             torch.cuda.synchronize()
-            rk = _rel_residual(A, xk, b)
+            rk = rel_residual(A, xk, b)
             dx = float((xk - xp).abs().max())
             rel_dx = dx / float(xp.abs().max())
             _check(rk <= res_tol, "K2 %s %s relative residual %.3e"
@@ -392,15 +350,15 @@ def phase_k2(device) -> dict:
                 _check(rel_dx <= fwd_tol, "K2 %s %s max|dx|/max|x| %.3e"
                        % (name, case, rel_dx))
             res[case] = dict(rel_res=rk,
-                             rel_res_plain=_rel_residual(A, xp, b),
+                             rel_res_plain=rel_residual(A, xp, b),
                              max_dx=dx, rel_dx=rel_dx)
         A, b = cases[0][1]
-        res["ms_25600_k8"] = _cuda_ms(lambda: batched_solve(A, b))
-        res["plain_ms_25600_k8"] = _cuda_ms(
+        res["ms_25600_k8"] = cuda_ms(lambda: batched_solve(A, b))
+        res["plain_ms_25600_k8"] = cuda_ms(
             lambda: batched_solve_plain(A, b))
         # the one PyTorch call that computes the same function (timed
         # only; the port never calls it)
-        res["library_ms_25600_k8"] = _cuda_ms(lambda: torch.linalg.solve(A,
+        res["library_ms_25600_k8"] = cuda_ms(lambda: torch.linalg.solve(A,
                                                                          b))
         n, k = A.shape[1], b.shape[2]
         res["bound_25600_k8"] = _bound(
@@ -434,14 +392,15 @@ def phase_main(device) -> dict:
                                   max_iter_schedule=[3, 3],
                                   al_stall_rounds=1)
 
-    fused_ip.launches = 0
+    fused_ip.launches = fused_ip.tile_launches = 0
     batched_solve.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = solve(x0s, us0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"fused_ip": fused_ip.launches,
+    launches = {"fused_ip": fused_ip.launches - fused_ip.tile_launches,
+                "fused_ip_tile": fused_ip.tile_launches,
                 "batched_solve": batched_solve.launches}
 
     for name in ("xs", "us", "objective", "al_objective",
@@ -451,7 +410,10 @@ def phase_main(device) -> dict:
     _check(tuple(res.xs.shape) == (B, ex.T, ex.NX), "xs shape")
     fell = float((res.objective < obj0).float().mean())
     _check(fell >= 0.5, "objective fell on only %.3f of lanes" % fell)
-    _check(launches["fused_ip"] > 0, "K1 not launched on the main path")
+    _check(launches["fused_ip"] > 0, "K1 (one thread a scenario, the "
+           "sweeps) not launched on the main path")
+    _check(launches["fused_ip_tile"] > 0, "K1 (a tile a scenario, the "
+           "rollout steps) not launched on the main path")
     _check(launches["batched_solve"] > 0,
            "K2 not launched on the main path")
     conv = res.converged.cpu().numpy()
@@ -580,9 +542,9 @@ def phase_k3(device) -> dict:
                                  for g, r in zip(got[:2], ref[:2]))),
                              ok_lanes=int(got[5].sum()), lanes=B)
             if dtype == torch.float32 and case == "deploy_512":
-                res[case]["ms"] = _cuda_ms(
+                res[case]["ms"] = cuda_ms(
                     lambda: riccati_backward(*data, mask))
-                res[case]["plain_ms"] = _cuda_ms(
+                res[case]["plain_ms"] = cuda_ms(
                     lambda: riccati_backward_plain(*data, mask), reps=3)
                 res[case].update(_bound(
                     _nbytes(*data, mask, *got[:2]) + 4 * B * 4,
@@ -681,8 +643,8 @@ def phase_k4(device) -> dict:
                 _check(torch.equal(k[1][:, 10:20], uss[:, 10:20]),
                        "K4 %s: masked steps moved u" % name)
             if dtype == torch.float32 and mask is None:
-                res[case]["ms"] = _cuda_ms(lambda: kern(*args))
-                res[case]["plain_ms"] = _cuda_ms(lambda: plain(*args),
+                res[case]["ms"] = cuda_ms(lambda: kern(*args))
+                res[case]["plain_ms"] = cuda_ms(lambda: plain(*args),
                                                  reps=1)
                 nx, nu = ex.NX, ex.NU
                 res[case].update(_bound(
@@ -745,12 +707,15 @@ def phase_new_path(device) -> dict:
                 "riccati": riccati_backward, "fused_rollout": fused_rollout}
     for c in counters.values():
         c.launches = 0
+    fused_ip.tile_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = solve(x0s, us0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
+    launches["fused_ip"] -= fused_ip.tile_launches
+    launches["fused_ip_tile"] = fused_ip.tile_launches
 
     for name in ("xs", "us", "objective", "al_objective",
                  "constraint_violation", "lam", "lamT", "rho"):
@@ -759,13 +724,15 @@ def phase_new_path(device) -> dict:
     _check(tuple(res.xs.shape) == (B, ex.T, ex.NX), "xs shape")
     fell = float((res.objective < obj0).float().mean())
     _check(fell >= 0.5, "objective fell on only %.3f of lanes" % fell)
-    for k, n in launches.items():
-        _check(n > 0, "%s not launched on the new path" % k)
-    # one derivative sweep (one K1 launch) per backward pass (one K3
-    # launch): no K1 launch comes from a rollout step
-    _check(launches["fused_ip"] == launches["riccati"],
+    for k in ("batched_solve", "riccati", "fused_rollout"):
+        _check(launches[k] > 0, "%s not launched on the new path" % k)
+    # one derivative sweep (one K1 launch, of either kernel: the sweep
+    # narrows as lanes converge) per backward pass (one K3 launch): no K1
+    # launch comes from a rollout step
+    k1_launches = launches["fused_ip"] + launches["fused_ip_tile"]
+    _check(k1_launches == launches["riccati"],
            "K1 launched %d times for %d backward passes"
-           % (launches["fused_ip"], launches["riccati"]))
+           % (k1_launches, launches["riccati"]))
     conv = res.converged.cpu().numpy()
     obj = res.objective.cpu().numpy()
     out = dict(wall_s=wall, launches=launches, stats=dict(solve.stats),
@@ -795,27 +762,6 @@ def phase_new_path(device) -> dict:
            % (dobj, dus))
     out["small_f64_vs_cpu"] = dict(rel_dobj=dobj, max_dus=dus)
     return out
-
-
-def push_batch(B: int, seed: int, device, dtype):
-    """Cold planar-push solves around the nominal pose (pusher touching the
-    box's left face, u = [1, 0.1]): q0 = q_nom + 0.005 N(0, 1), q1 = q0 +
-    0.001 N(0, 1), u = u_nom + 0.1 N(0, 1), the distribution of the
-    reference's fused-kernel test, from a numpy seed."""
-    import torch
-
-    from optimization_dynamics_tpu_torch.models import planar_push as pp
-
-    rng = np.random.default_rng(seed)
-    q0 = (np.array([0.0, 0.0, 0.0, -pp.R_DIM - 1e-6, 0.0])
-          + 0.005 * rng.standard_normal((B, 5)))
-    q1 = q0 + 0.001 * rng.standard_normal((B, 5))
-    u = np.array([1.0, 0.1]) + 0.1 * rng.standard_normal((B, 2))
-    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
-    model = pp.model()
-    q1_t = t(q1)
-    return model, model.init_z(q1_t), model.theta_fn(
-        t(q0), q1_t, t(u), pp.PlanarPushAux(h=0.1))
 
 
 def _fused_ip_phase(device, batch, opts, n_sweep: int, seeds,
@@ -863,8 +809,8 @@ def _fused_ip_phase(device, batch, opts, n_sweep: int, seeds,
                        % (model.kernel, case, dz))
                 res[case]["max_dz_all_lanes"] = dz
             if dtype == torch.float32:
-                res[case]["ms"] = _cuda_ms(lambda: kern(z0, th))
-                res[case]["plain_ms"] = _cuda_ms(lambda: plain(z0, th),
+                res[case]["ms"] = cuda_ms(lambda: kern(z0, th))
+                res[case]["plain_ms"] = cuda_ms(lambda: plain(z0, th),
                                                  reps=1)
                 res[case].update(_bound(
                     _nbytes(z0, th, sk.z) + 4 * z0.shape[0] * 4,
@@ -878,23 +824,24 @@ def _fused_ip_phase(device, batch, opts, n_sweep: int, seeds,
         n, k = A.shape[1], b.shape[2]
         xk, xp = batched_solve(A, b), batched_solve_plain(A, b)
         torch.cuda.synchronize()
-        rk = _rel_residual(A, xk, b)
+        rk = rel_residual(A, xk, b)
         _check(bool(torch.isfinite(xk).all()), "K2 %s (%d, %d): x not "
                "finite" % (name, n, k))
         _check(rk <= (1e-12 if dtype == torch.float64 else 1e-4),
                "K2 %s (%d, %d) relative residual %.3e" % (name, n, k, rk))
         dx = float((xk - xp).abs().max())
-        k2 = dict(rel_res=rk, rel_res_plain=_rel_residual(A, xp, b),
+        k2 = dict(rel_res=rk, rel_res_plain=rel_residual(A, xp, b),
                   max_dx=dx, rel_dx=dx / float(xp.abs().max()))
         if dtype == torch.float32:
-            k2["ms"] = _cuda_ms(lambda: batched_solve(A, b))
-            k2["plain_ms"] = _cuda_ms(lambda: batched_solve_plain(A, b))
+            k2["ms"] = cuda_ms(lambda: batched_solve(A, b))
+            k2["plain_ms"] = cuda_ms(lambda: batched_solve_plain(A, b))
             # the one PyTorch call that computes the same function (timed
             # only; the port never calls it)
-            k2["library_ms"] = _cuda_ms(lambda: torch.linalg.solve(A, b))
+            k2["library_ms"] = cuda_ms(lambda: torch.linalg.solve(A, b))
             k2.update(_bound(2 * _nbytes(b) + _nbytes(A),
                              A.shape[0] * (4.0 / 3.0 * n ** 3
                                            + 3 * n ** 2 * k)))
+            k2["bound_share"] = k2["bound_ms"] / k2["ms"]
         res["k2_ift_%d" % n_sweep] = k2
         out[name] = res
     return out
@@ -1134,7 +1081,7 @@ def phase_k5(device) -> dict:
         out[variant] = dict(
             max_abs_err=err, bitwise=bool(torch.equal(got, ref)),
             ms=ms[variant],
-            plain_ms=_cuda_ms(lambda: loop_overhead_plain(x, variant),
+            plain_ms=cuda_ms(lambda: loop_overhead_plain(x, variant),
                               reps=1),
             us_per_iteration=1e3 * ms[variant] / N_ITER, **bound)
     return out
@@ -1154,7 +1101,7 @@ def main() -> int:
     from optimization_dynamics_tpu_torch.ops.kernels._build import (
         load_library, ptxas_report)
 
-    smi = _nvidia_smi()
+    smi = nvidia_smi()
     t0 = time.perf_counter()
     load_library()
     build_s = time.perf_counter() - t0
@@ -1198,6 +1145,7 @@ def main() -> int:
     src = "optimization_dynamics_tpu_torch/ops/kernels/csrc/"
     tpu = "optimization_dynamics_tpu/ops/pallas/"
     k1t, k3t = k1["f32"]["warm_25600"], k3["f32"]["deploy_512"]
+    k1r = k1["f32"]["cold_1024"]
     k4t = k4["f32"]["all_active"]
     k2b = k2["f32"]["bound_25600_k8"]
     k1nt, k2p = k1n["f32"]["warm_6400"], k1n["f32"]["k2_ift_6400"]
@@ -1207,7 +1155,7 @@ def main() -> int:
              max_abs_err=max(c["max_dq"] for c in k1["f32"].values()),
              ms=k1t["ms"], plain_ms=k1t["plain_ms"],
              bound_ms=k1t["bound_ms"], bound_by=k1t["bound_by"],
-             library_ms=None),
+             library_ms=None, ms_cold_1024=k1r["ms"]),
         dict(name="batched_solve", route="cuda",
              source=src + "batched_solve.cu",
              replaces=tpu + "batched_solve.py:119",
@@ -1234,6 +1182,14 @@ def main() -> int:
     for k in kernels:
         k["launches"] = nw["launches"][k["name"]]
     kernels += [
+        dict(name="fused_ip_tile", route="cuda", source=src + "fused_ip.cu",
+             replaces=tpu + "fused_ip.py:410",
+             launches=mp["launches"]["fused_ip_tile"],
+             max_abs_err=max(k1["f32"][c]["max_dq"]
+                             for c in ("cold_1024", "cold_4096")),
+             ms=k1r["ms"], plain_ms=k1r["plain_ms"],
+             bound_ms=k1r["bound_ms"], bound_by=k1r["bound_by"],
+             library_ms=None),
         dict(name="fused_ip_nz35", route="cuda",
              source=src + "fused_ip_push.cu",
              replaces=tpu + "fused_ip.py:442",

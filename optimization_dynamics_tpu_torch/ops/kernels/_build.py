@@ -37,9 +37,9 @@ from pathlib import Path
 import torch
 
 __all__ = ["library_path", "build", "load_library", "ptxas_report",
-           "FUSED_IP_FUNCTORS",
+           "FUSED_IP_FUNCTORS", "FUSED_IP_TILE_MAX_B",
            "BATCHED_SOLVE_SHAPES", "RICCATI_SHAPES",
-           "FUSED_ROLLOUT_FUNCTORS", "fused_ip_symbol",
+           "FUSED_ROLLOUT_FUNCTORS", "fused_ip_symbol", "fused_ip_tile_symbol",
            "batched_solve_symbol", "riccati_symbol", "fused_rollout_symbol"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -55,6 +55,15 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 FUSED_IP_FUNCTORS = {"cartpole_friction": (10, 8),  # name -> (nz, ntheta)
                      "planar_push": (35, 13),
                      "acrobot_impact": (6, 6)}
+# functors that also have K1's tile kernel (a 16-thread tile a scenario,
+# csrc/ip_tile.cuh), and the widest batch it takes. A narrow launch
+# leaves most SMs idle with a thread a scenario; a wide one fills the card,
+# and then the per-thread kernel, with fewer instructions a scenario, is
+# the faster. The cut is the widest measured width at which the tile was
+# faster on cold and on warm-started scenarios alike (cold, it loses from
+# 20,480 on; warm, from 25,600: PERF.md section 6, PR 5 runs 2 and 5).
+# The B=512 deploy sends no width between 6,400 and 25,600.
+FUSED_IP_TILE_MAX_B = {"cartpole_friction": 16384}
 FUSED_ROLLOUT_FUNCTORS = {"cartpole_friction": (2, 1)}  # name -> (nq, nu)
 BATCHED_SOLVE_SHAPES = frozenset({(10, 8), (10, 1), (35, 13), (6, 6),
                                   (2, 1), (2, 6)})  # (n, k)
@@ -64,6 +73,10 @@ SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 def fused_ip_symbol(functor: str, dtype: torch.dtype) -> str:
     return "odt_fused_ip_%s_%s" % (functor, SUFFIX[dtype])
+
+
+def fused_ip_tile_symbol(functor: str, dtype: torch.dtype) -> str:
+    return "odt_fused_ip_tile_%s_%s" % (functor, SUFFIX[dtype])
 
 
 def fused_rollout_symbol(functor: str, dtype: torch.dtype) -> str:
@@ -83,6 +96,8 @@ _VP, _INT = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     **{fused_ip_symbol(f, dt): [_VP, _VP, _VP, _VP, _INT, _VP, _VP, _VP]
        for f in FUSED_IP_FUNCTORS for dt in SUFFIX},
+    **{fused_ip_tile_symbol(f, dt): [_VP, _VP, _VP, _VP, _INT, _VP, _VP, _VP]
+       for f in FUSED_IP_TILE_MAX_B for dt in SUFFIX},
     **{fused_rollout_symbol(f, dt): [_VP] * 11 + [_INT, _INT] + [_VP] * 4
        for f in FUSED_ROLLOUT_FUNCTORS for dt in SUFFIX},
     **{batched_solve_symbol(n, k, dt): [_VP, _VP, _VP, _INT, _VP]
@@ -162,8 +177,8 @@ def build() -> Path:
 
 def ptxas_report() -> dict:
     """What the build of these sources logged: per command its seconds,
-    and per kernel its registers, stack frame and spill bytes
-    (``{"compile_s": {source: s}, "kernels": {name: {...}}}``)."""
+    and per kernel its registers, static shared memory, stack frame and
+    spill bytes (``{"compile_s": {source: s}, "kernels": {name: {...}}}``)."""
     text = library_path().with_suffix(".log").read_text()
     out = {"compile_s": {}, "kernels": {}}
     for cmd, body, sec in re.findall(r"^\$ (.*?)\n(.*?)^# ([\d.]+) s$",
@@ -176,6 +191,7 @@ def ptxas_report() -> dict:
             num = lambda pat: int((re.search(pat, props) or [0, 0])[1])
             out["kernels"][name] = dict(
                 registers=num(r"Used (\d+) registers"),
+                smem=num(r"(\d+) bytes smem"),
                 stack=num(r"(\d+) bytes stack frame"),
                 spill_stores=num(r"(\d+) bytes spill stores"),
                 spill_loads=num(r"(\d+) bytes spill loads"))

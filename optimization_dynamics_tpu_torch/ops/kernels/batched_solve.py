@@ -8,16 +8,22 @@ derivative sweep (n=10, k=8, B x (T-1) = 25,600 systems at the deploy
 width) and the Newton solve of ``make_solver_batched`` (n=10, k=1), which
 runs on the card for a model without a fused-IP device functor.
 
-What bounds it on an H100: each system is ~4k flops on 260 values, so
-the arithmetic is small and the kernel is bound by latency: at 25,600
-systems one thread per system fills each of the 132 SMs with under two
-128-thread blocks, the thread's row-major loads of its own 100-entry
-matrix are not coalesced across the warp, and in double the 10x10 factor
-spills to local memory. The design keeps the whole factorisation of a
-system in one thread (no shared memory, no synchronisation), the same
-device function as the fused IP kernel, with n and k as template
-parameters so every loop unrolls; it is right and simple first. Staging
-batch-last tiles through shared memory would coalesce the loads.
+What bounds it on an H100: the arithmetic is small (a 10x10 system with
+8 right-hand sides is ~4k flops on 260 values), so the kernel is bound by
+latency and by how its loads coalesce. Up to 16 unknowns
+(``UNROLL_MAX_N``) one thread solves a system (128-thread blocks), the
+factorisation unrolled into registers, the same per-thread QR as the
+fused IP kernels (``csrc/qr.cuh``); at 25,600 systems that fills each SM
+with under two blocks, and the thread's row-major loads of its own matrix
+do not coalesce across the warp, but it beats ``torch.linalg.solve`` at
+(10, 8) and (6, 6). Above 16 unknowns (planar push's 35x35 systems with
+13 right-hand sides) one system would be ~57k dependent operations in
+one thread's local memory, so there one 64-thread block solves a system
+(``csrc/qr_group.cuh``): the block loads A and b into shared memory with
+all its threads, coalesced, each thread owns one column of [A | b] in
+registers, and each Householder step is one owner's reflector and a
+parallel update of the other columns, in the per-thread code's order of
+arithmetic.
 
 The wrapper takes the plain version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises.

@@ -1,13 +1,21 @@
-// The fused IP kernel and its launcher, instantiated per device functor
-// in a source file of its own (fused_ip.cu: K1, cartpole; fused_ip_push.cu:
-// K1n, planar push), so nvcc builds them in parallel. One thread per
-// scenario; the per-lane solve is ip_solve_lane (ip_body.cuh), which K4
-// shares. See ops/kernels/fused_ip.py for the design note.
+// The fused IP kernels and their launchers, instantiated per device
+// functor in a source file of its own (fused_ip.cu: K1, cartpole;
+// fused_ip_push.cu: K1n, planar push; fused_ip_acrobot.cu: K1a, acrobot),
+// so nvcc builds them in parallel. See ops/kernels/fused_ip.py for the
+// design note. Two kernels:
+// * fused_ip_kernel (ODT_FUSED_IP): one thread a scenario; the per-lane
+//   solve is ip_solve_lane (ip_body.cuh), which K4 shares;
+// * fused_ip_tile_kernel (ODT_FUSED_IP_TILE): one 16-thread tile a
+//   scenario, IP_TILES_PER_BLOCK tiles a block; the solve is
+//   ip_solve_tile (ip_tile.cuh). It takes any functor with NZ + 1 <= 16.
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include <cstdint>
 
 #include "ip_body.cuh"
+#include "ip_tile.cuh"
 
 namespace odt {
 
@@ -53,6 +61,63 @@ int launch_fused_ip(const void* z0s, const void* ths, void* zs, void* stats,
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int IP_TILE = 16;
+// scenarios a block of the tile kernel (the launch bound follows): 64
+// threads measured tied with 128 (PERF.md section 6, PR 5); 64 kept
+constexpr int IP_TILES_PER_BLOCK = 4;
+
+// One tile a scenario. A tile whose scenario is past B returns as a
+// whole, before any sync; after the loads there is no block-level
+// barrier, so the tiles of a block stop at their own iterations.
+template <typename T, typename M>
+__global__ void __launch_bounds__(IP_TILE * IP_TILES_PER_BLOCK)
+fused_ip_tile_kernel(const T* __restrict__ z0s, const T* __restrict__ ths,
+                     T* __restrict__ zs_out, T* __restrict__ stats, int B,
+                     M model, IPParams<T> p) {
+  namespace cg = cooperative_groups;
+  constexpr int NZ = M::NZ;
+  constexpr int NTH = M::NTH;
+  __shared__ T S[IP_TILES_PER_BLOCK][NZ * (NZ + 1)];
+  __shared__ T vb[IP_TILES_PER_BLOCK][2 * (NZ + 1)];
+  const cg::thread_block_tile<IP_TILE> tile =
+      cg::tiled_partition<IP_TILE>(cg::this_thread_block());
+  const int t = threadIdx.x / IP_TILE;
+  const int64_t lane = (int64_t)blockIdx.x * IP_TILES_PER_BLOCK + t;
+  if (lane >= B) return;
+
+  T z[NZ], th[NTH], st[4];
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) z[i] = z0s[lane * NZ + i];
+#pragma unroll
+  for (int i = 0; i < NTH; ++i) th[i] = ths[lane * NTH + i];
+
+  ip_solve_tile<T, M, IP_TILE>(tile, z, th, model, p, st, S[t], vb[t]);
+
+  const int rank = static_cast<int>(tile.thread_rank());
+#pragma unroll
+  for (int i = 0; i < NZ; ++i)
+    if (i % IP_TILE == rank) zs_out[lane * NZ + i] = z[i];
+  if (rank == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) stats[lane * 4 + i] = st[i];
+  }
+}
+
+template <typename T, typename M>
+int launch_fused_ip_tile(const void* z0s, const void* ths, void* zs,
+                         void* stats, int B, const double* model_params,
+                         const double* ip, void* stream) {
+  if (B <= 0) return 0;
+  const IPParams<T> p = make_ip_params<T>(ip);
+  const M model(model_params);
+  const int blocks = (B + IP_TILES_PER_BLOCK - 1) / IP_TILES_PER_BLOCK;
+  fused_ip_tile_kernel<T, M>
+      <<<blocks, IP_TILE * IP_TILES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+          static_cast<const T*>(z0s), static_cast<const T*>(ths),
+          static_cast<T*>(zs), static_cast<T*>(stats), B, model, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace odt
 
 #define ODT_FUSED_IP(NAME, FUNCTOR, SUFFIX, T)                               \
@@ -61,5 +126,13 @@ int launch_fused_ip(const void* z0s, const void* ths, void* zs, void* stats,
                                      const double* model_params,              \
                                      const double* ip, void* stream) {        \
     return odt::launch_fused_ip<T, odt::FUNCTOR<T>>(                          \
+        z0s, ths, zs, stats, B, model_params, ip, stream);                    \
+  }
+
+#define ODT_FUSED_IP_TILE(NAME, FUNCTOR, SUFFIX, T)                          \
+  int odt_fused_ip_tile_##NAME##_##SUFFIX(                                    \
+      const void* z0s, const void* ths, void* zs, void* stats, int B,         \
+      const double* model_params, const double* ip, void* stream) {           \
+    return odt::launch_fused_ip_tile<T, odt::FUNCTOR<T>>(                     \
         z0s, ths, zs, stats, B, model_params, ip, stream);                    \
   }

@@ -13,16 +13,36 @@ What bounds it on an H100: arithmetic and latency, not memory. A lane
 reads 18 values and writes 14, then runs a data-dependent Newton loop:
 per iteration ten dual-number residual passes for the Jacobian, a 10x10
 Householder QR, and up to ``max_ls`` residual passes of the line search.
-The design gives each scenario one thread (128 per block) that keeps z,
-theta, the residual, the Jacobian and the QR factors in registers (local
-memory where they spill) and loops until its own lane is converged,
-stalled or at ``max_iter``, so no lane waits for the batch and a lane's
-iteration count is its own, as in ``make_solver_batched``. Divergent
-lanes in one warp serialise; the first kernel accepts that. The model
-enters as a device functor (``csrc/cartpole_friction.cuh``) whose
-residual is a template on the number type; dual numbers give the
-Jacobian columns, as ``jax.jacfwd`` does inside the Pallas body, so
-hopper (nz=20) and push (nz=35) can reuse the kernel with a new functor.
+A launch lasts as long as its slowest scenario (up to ``max_iter`` = 40
+iterations). Two kernels share that work out differently, and the
+wrapper picks by the launch's width (``FUSED_IP_TILE_MAX_B``):
+
+* Narrow launches, the rollout steps that are nearly all of K1's
+  launches (B x alphas scenarios: 1,024 or 2,048 at B=512, fewer once
+  the solver compacts its active lanes) and the sweeps that compaction
+  narrowed (6,400 and fewer), would fill a few blocks of one thread a
+  scenario on a few of the 132 SMs (eight at 1,024), each thread running
+  the whole serial chain. There one 16-thread tile runs a scenario
+  (``csrc/ip_tile.cuh``, four tiles a 64-thread block): thread j
+  computes the Jacobian's column j with one dual-number residual, thread
+  10 the right-hand side, the tile solves the Newton system with a column
+  a thread (``csrc/qr_group.cuh``) and runs the line search's candidates
+  at once. z, theta, the residual, kappa and the loop's flags are held
+  redundantly by every thread of the tile, bit-identical, so the tile
+  takes every branch together and stops at its own scenario's iteration,
+  as in ``make_solver_batched``.
+* Wide launches, the full derivative sweeps (B x (T-1) = 25,600
+  scenarios), fill the card either way; the tile's redundant work then
+  costs more issue slots than the chain it shortens, and one thread a
+  scenario (``csrc/fused_ip.cuh``, 128-thread blocks, ``ip_solve_lane``,
+  which the fused rollout K4 shares) is the faster.
+
+Both keep the same arithmetic in the same order, so they give the same
+results to rounding. The model enters as a device functor
+(``csrc/cartpole_friction.cuh``) whose residual is a template on the
+number type; dual numbers give the Jacobian columns, as ``jax.jacfwd``
+does inside the Pallas body. K1a (acrobot, nz=6) and K1n (planar push,
+nz=35) run the per-thread kernel at every width.
 
 The plain version is the port of ``make_solver_batched`` (geometric
 schedule) with its Newton solve pinned to K2's plain QR. The wrapper
@@ -32,6 +52,7 @@ or raises.
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Callable
 
 import numpy as np
@@ -39,8 +60,10 @@ import torch
 
 from optimization_dynamics_tpu_torch.ops.kernels._build import (
     FUSED_IP_FUNCTORS,
+    FUSED_IP_TILE_MAX_B,
     SUFFIX,
     fused_ip_symbol,
+    fused_ip_tile_symbol,
     load_library,
 )
 from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
@@ -75,7 +98,11 @@ def fused_ip(z0s: torch.Tensor, thetas: torch.Tensor, kernel: str,
              model_params: np.ndarray, ip_params: np.ndarray,
              plain: Callable) -> IPSolution:
     """The K1 wrapper. CPU tensors run ``plain``; CUDA tensors launch the
-    kernel of the device functor ``kernel`` (float32 or float64)."""
+    kernel of the device functor ``kernel`` (float32 or float64): the tile
+    kernel for a functor of ``FUSED_IP_TILE_MAX_B`` up to its width
+    (counted in ``fused_ip.tile_launches`` too), else the per-thread
+    kernel. ``fused_ip.widths`` counts the launches by (kernel, B), with
+    kernel ``"tile"`` or ``"thread"``."""
     if z0s.device.type == "cpu" and thetas.device.type == "cpu":
         return plain(z0s, thetas)
     if z0s.device.type != "cuda" or thetas.device != z0s.device:
@@ -96,7 +123,9 @@ def fused_ip(z0s: torch.Tensor, thetas: torch.Tensor, kernel: str,
                                              tuple(thetas.shape))))
     if B >= 2 ** 31:
         raise ValueError("fused_ip: batch too large for int32")
-    fn = getattr(load_library(), fused_ip_symbol(kernel, z0s.dtype))
+    tile = B <= FUSED_IP_TILE_MAX_B.get(kernel, 0)
+    symbol = fused_ip_tile_symbol if tile else fused_ip_symbol
+    fn = getattr(load_library(), symbol(kernel, z0s.dtype))
     z0s = z0s.contiguous()
     thetas = thetas.contiguous()
     zs = torch.empty_like(z0s)
@@ -111,12 +140,16 @@ def fused_ip(z0s: torch.Tensor, thetas: torch.Tensor, kernel: str,
             raise RuntimeError("fused_ip kernel launch failed: CUDA error "
                                "%d" % err)
         fused_ip.launches += 1
+        fused_ip.tile_launches += tile
+        fused_ip.widths["tile" if tile else "thread", B] += 1
     return IPSolution(z=zs, iterations=stats[:, 0].to(torch.int32),
                       converged=stats[:, 1] > 0.5, r_vio=stats[:, 2],
                       kappa_vio=stats[:, 3])
 
 
 fused_ip.launches = 0
+fused_ip.tile_launches = 0
+fused_ip.widths = Counter()
 
 
 def make_fused_ip_solver(model, opts: IPOptions, device, dtype

@@ -1,0 +1,110 @@
+"""Timers and kernel inputs shared by the port's card measurements.
+
+``chip_smoke.py`` and ``tools/kernel_times.py`` time the kernels on these
+inputs, so two checkouts that both have this module time the same work:
+
+* ``nvidia_smi``: the card's name and power limit, as
+  ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+  prints them;
+* ``cuda_ms``: the median of CUDA-event times of a call;
+* ``rel_residual``: the relative residual of batched solves;
+* ``envelope_batch``, ``warm_batch``: cold cartpole-friction IP solves
+  over the swing-up envelope, and their warm starts one iterate earlier
+  (the derivative sweep's);
+* ``push_batch``: cold planar-push IP solves around the nominal pose.
+
+Every input comes from a numpy seed.
+"""
+
+from __future__ import annotations
+
+import subprocess
+
+import numpy as np
+import torch
+
+__all__ = ["nvidia_smi", "cuda_ms", "rel_residual", "envelope_batch",
+           "warm_batch", "push_batch"]
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 5) -> float:
+    """Median milliseconds of ``fn()`` on the card, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def rel_residual(A, x, b) -> float:
+    """max over systems of |A x - b|_inf / (|A|_inf |x|_inf + |b|_inf),
+    evaluated in float64."""
+    A, x, b = A.double(), x.double(), b.double()
+    r = (A @ x - b).abs().amax(dim=(1, 2))
+    scale = (A.abs().sum(dim=2).amax(dim=1) * x.abs().amax(dim=(1, 2))
+             + b.abs().amax(dim=(1, 2)))
+    return float((r / scale).max())
+
+
+def envelope_batch(B: int, seed: int, device, dtype):
+    """Cold cartpole-friction solves over the swing-up envelope: |q| up to
+    ~2, angles +-pi, u +-3 sigma (the distribution of the reference's
+    fused-vs-XLA parity test), from a numpy seed."""
+    from optimization_dynamics_tpu_torch.models import cartpole
+
+    rng = np.random.default_rng(seed)
+    q1 = np.stack([2.0 * rng.standard_normal(B),
+                   np.pi * rng.standard_normal(B)], axis=1)
+    q0 = q1 - 0.05 * rng.standard_normal((B, 2))
+    u = 3.0 * rng.standard_normal((B, 1))
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    model = cartpole.friction_model()
+    aux = cartpole.CartpoleAux(h=0.05, friction=t([0.35, 0.35]))
+    q1_t = t(q1)
+    return model, model.init_z(q1_t), model.theta_fn(t(q0), q1_t, t(u), aux)
+
+
+def warm_batch(kern, model, z0s, ths, seed: int):
+    """The derivative sweep's warm starts: z0s are K1's solutions of the
+    same lanes one iterate earlier (the control moved by 0.05 N(0, 1))."""
+    rng = np.random.default_rng(seed)
+    du = torch.as_tensor(
+        0.05 * rng.standard_normal((ths.shape[0], len(model.th_u))),
+        dtype=ths.dtype, device=ths.device)
+    prev = ths.clone()
+    prev[:, list(model.th_u)] += du
+    return kern(z0s, prev).z, ths
+
+
+def push_batch(B: int, seed: int, device, dtype):
+    """Cold planar-push solves around the nominal pose (pusher touching the
+    box's left face, u = [1, 0.1]): q0 = q_nom + 0.005 N(0, 1), q1 = q0 +
+    0.001 N(0, 1), u = u_nom + 0.1 N(0, 1), the distribution of the
+    reference's fused-kernel test, from a numpy seed."""
+    from optimization_dynamics_tpu_torch.models import planar_push as pp
+
+    rng = np.random.default_rng(seed)
+    q0 = (np.array([0.0, 0.0, 0.0, -pp.R_DIM - 1e-6, 0.0])
+          + 0.005 * rng.standard_normal((B, 5)))
+    q1 = q0 + 0.001 * rng.standard_normal((B, 5))
+    u = np.array([1.0, 0.1]) + 0.1 * rng.standard_normal((B, 2))
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    model = pp.model()
+    q1_t = t(q1)
+    return model, model.init_z(q1_t), model.theta_fn(
+        t(q0), q1_t, t(u), pp.PlanarPushAux(h=0.1))

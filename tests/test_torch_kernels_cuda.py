@@ -24,7 +24,12 @@ float32. K1a (the fused IP solve at nz=6, acrobot) as K1 in float64 with
 identical flags and iteration counts; K2 at (6, 6), (2, 1) and (2, 6) as
 at (10, 8). K5 (the loop-overhead probe) within float32 atol 1e-4 of its
 plain version in every variant (it rounds each product and sum as the
-plain loop does, so it is expected to agree bit for bit).
+plain loop does, so it is expected to agree bit for bit). K1's tile
+kernel (a 16-thread tile a scenario, launches up to 16,384 scenarios) in
+float64 with flags and iteration counts identical to the plain version's
+(with ``max_ls`` = 20 too, two line-search chunks); K2 at (35, 13) (a
+64-thread block a system) with float64 relative residual <= 1e-12 on
+ragged batches and KKT-like saddle systems.
 """
 
 import numpy as np
@@ -38,6 +43,9 @@ from optimization_dynamics_tpu_torch.examples import acrobot as acrobot_ex
 from optimization_dynamics_tpu_torch.examples import planar_push as push_ex
 from optimization_dynamics_tpu_torch.models import cartpole
 from optimization_dynamics_tpu_torch.models import planar_push
+from optimization_dynamics_tpu_torch.ops.kernels._build import (
+    FUSED_IP_TILE_MAX_B,
+)
 from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
     batched_solve,
     batched_solve_plain,
@@ -62,6 +70,7 @@ from optimization_dynamics_tpu_torch.ops.kernels.riccati import (
     riccati_backward_plain,
 )
 from optimization_dynamics_tpu_torch.solver.interior_point import IPOptions
+from optimization_dynamics_tpu_torch.utils.measure import rel_residual
 
 pytestmark = pytest.mark.cuda
 
@@ -349,6 +358,109 @@ def test_fused_ip_push_kernel_ragged_batch(card):
         np.testing.assert_array_equal(sk.converged.cpu().numpy(),
                                       sp.converged.cpu().numpy())
         assert bool(sk.converged.all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fused_ip_tile_kernel_rollout_width(card, dtype):
+    """K1 (a 16-thread tile a scenario) at a rollout step's width, B x 2
+    alphas = 1,024 cold lanes at B=512: float64 flags identical to the
+    plain version's on every lane, float32 converged counts within 1%."""
+    model, z0s, ths = _envelope(1024, 16, card, dtype)
+    before = fused_ip.tile_launches
+    sk = make_fused_ip_solver(model, OPTS, card, dtype)(z0s, ths)
+    assert fused_ip.tile_launches == before + 1
+    sp = make_fused_ip_plain(model, OPTS, card, dtype)(z0s, ths)
+    ck, cp = sk.converged.cpu().numpy(), sp.converged.cpu().numpy()
+    assert bool(torch.isfinite(sk.z).all())
+    if dtype == torch.float64:
+        np.testing.assert_array_equal(ck, cp)
+    else:
+        assert abs(int(ck.sum()) - int(cp.sum())) <= 0.01 * len(ck)
+
+
+def test_fused_ip_tile_kernel_ragged_tiles(card):
+    """Batches that cut a tile kernel's block (4 scenarios) and the warps'
+    tile pairs: every lane solved, float64 flags and counts as the plain
+    version's."""
+    for B in (1, 7, 9, 1023):
+        model, z0s, ths = _envelope(B, 17, card, torch.float64)
+        sk = make_fused_ip_solver(model, OPTS, card, torch.float64)(z0s,
+                                                                   ths)
+        sp = make_fused_ip_plain(model, OPTS, card, torch.float64)(z0s,
+                                                                  ths)
+        assert tuple(sk.z.shape) == (B, 10)
+        assert tuple(sk.iterations.shape) == (B,)
+        assert bool(torch.isfinite(sk.z).all())
+        np.testing.assert_array_equal(sk.converged.cpu().numpy(),
+                                      sp.converged.cpu().numpy())
+        np.testing.assert_array_equal(sk.iterations.cpu().numpy(),
+                                      sp.iterations.cpu().numpy())
+
+
+def test_fused_ip_tile_kernel_line_search_in_chunks(card):
+    """max_ls = 20 candidates on a 16-thread tile: the sweep runs in two
+    chunks; float64 flags and iteration counts as the plain version's."""
+    opts = IPOptions(**{**DEPLOY_IP_ACCEL, "max_ls": 20})
+    model, z0s, ths = _envelope(1024, 18, card, torch.float64)
+    sk = make_fused_ip_solver(model, opts, card, torch.float64)(z0s, ths)
+    sp = make_fused_ip_plain(model, opts, card, torch.float64)(z0s, ths)
+    np.testing.assert_array_equal(sk.converged.cpu().numpy(),
+                                  sp.converged.cpu().numpy())
+    np.testing.assert_array_equal(sk.iterations.cpu().numpy(),
+                                  sp.iterations.cpu().numpy())
+
+
+def test_fused_ip_kernels_route_by_width(card):
+    """Up to FUSED_IP_TILE_MAX_B scenarios the tile kernel runs, above it
+    the per-thread kernel; both give the plain version's float64 flags."""
+    limit = FUSED_IP_TILE_MAX_B["cartpole_friction"]
+    model, z0s, ths = _envelope(limit + 1, 19, card, torch.float64)
+    solve = make_fused_ip_solver(model, OPTS, card, torch.float64)
+    plain = make_fused_ip_plain(model, OPTS, card, torch.float64)
+    for B, tile in ((limit, 1), (limit + 1, 0)):
+        launches, tiles = fused_ip.launches, fused_ip.tile_launches
+        sk = solve(z0s[:B], ths[:B])
+        assert fused_ip.launches == launches + 1
+        assert fused_ip.tile_launches == tiles + tile
+        np.testing.assert_array_equal(
+            sk.converged.cpu().numpy(),
+            plain(z0s[:B], ths[:B]).converged.cpu().numpy())
+
+
+@pytest.mark.parametrize("B", [1, 63, 65])
+def test_batched_solve_group_kernel_ragged_batch(card, B):
+    """K2 at (35, 13), one 64-thread block a system, on batches around
+    the warp pair: float64 relative residual <= 1e-12, and the plain
+    version's x within 1e-10 relative."""
+    rng = np.random.default_rng(25 + B)
+    A = torch.as_tensor(rng.standard_normal((B, 35, 35)) + 12.0 * np.eye(35),
+                        device=card)
+    b = torch.as_tensor(rng.standard_normal((B, 35, 13)), device=card)
+    x = batched_solve(A, b)
+    assert rel_residual(A, x, b) <= 1e-12
+    xp = batched_solve_plain(A, b)
+    assert float((x - xp).abs().amax() / xp.abs().amax()) <= 1e-10
+
+
+def test_batched_solve_group_kernel_saddle_systems(card):
+    """K2 at (35, 13) on KKT-like [[H, C^T], [C, 0]] systems, H 20x20
+    positive definite, C 15x20 (the zero block puts zeros on the
+    diagonal): float64 relative residual <= 1e-12."""
+    rng = np.random.default_rng(28)
+    B, m, c = 500, 20, 15
+    A = np.zeros((B, m + c, m + c))
+    H = rng.standard_normal((B, m, m))
+    A[:, :m, :m] = H @ H.transpose(0, 2, 1) + 0.5 * np.eye(m)
+    C = rng.standard_normal((B, c, m))
+    A[:, :m, m:] = C.transpose(0, 2, 1)
+    A[:, m:, :m] = C
+    At = torch.as_tensor(A, device=card)
+    bt = torch.as_tensor(rng.standard_normal((B, m + c, 13)), device=card)
+    before = batched_solve.launches
+    x = batched_solve(At, bt)
+    assert batched_solve.launches == before + 1
+    assert bool(torch.isfinite(x).all())
+    assert rel_residual(At, x, bt) <= 1e-12
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),

@@ -14,8 +14,9 @@ Run from the repository root on a machine with one CUDA card:
 ``deploy`` runs the example's deploy solve (``examples/cartpole.py`` or
 ``examples/planar_push.py``, ``examples/acrobot.py``, ``main
 --deploy``), which prints its own summary, then prints one JSON line: the
-K1 (K1n for push, K1a for acrobot) and K2 launches of the solve, the
-median converged objective and, with ``--lanes``, each lane's flag,
+K1 (K1n for push, K1a for acrobot) and K2 launches of the solve, K1's
+launches by kernel (tile or per-thread) and width, the median converged
+objective and, with ``--lanes``, each lane's flag,
 objective and inner iterations. The batch defaults to the deploy width:
 512 for cartpole, 256 for push and acrobot.
 
@@ -64,6 +65,7 @@ def deploy(args) -> None:
     ex, B = _example(args)
     k1, k2 = _launch_counters()
     k1.launches = k2.launches = 0
+    k1.widths.clear()
     res = ex.main(["--deploy", "--device", "cuda", "--dtype", args.dtype,
                    "--batch", str(B)])
     conv = res.converged.cpu().numpy()
@@ -71,6 +73,10 @@ def deploy(args) -> None:
     out = dict(model=args.model, dtype=args.dtype, batch=B,
                launches={"fused_ip": k1.launches,
                          "batched_solve": k2.launches},
+               fused_ip_widths={
+                   route: {str(b): n for (r, b), n in sorted(k1.widths.items())
+                           if r == route}
+                   for route in ("tile", "thread")},
                median_obj_converged=(float(np.median(obj[conv]))
                                      if conv.any() else None))
     if args.lanes:
@@ -92,6 +98,24 @@ def _busy_seconds(intervals) -> float:
     if cur is not None:
         busy += cur[1] - cur[0]
     return busy
+
+
+def _kernel_label(name: str) -> str:
+    """The port's kernel a profiler event belongs to, by the CUDA kernel's
+    name: K1 is the tile kernel, K1n and K1a the per-thread one with their
+    functors, K2 the per-thread or the group solve."""
+    for key, label in (("PlanarPush", "K1n fused_ip"),
+                       ("AcrobotImpact", "K1a fused_ip"),
+                       ("fused_ip_tile_kernel", "K1 fused_ip (tile)"),
+                       ("fused_ip_kernel", "K1 fused_ip"),
+                       ("batched_solve_group_kernel",
+                        "K2 batched_solve (group)"),
+                       ("batched_solve_kernel", "K2 batched_solve"),
+                       ("riccati", "K3 riccati"),
+                       ("fused_rollout_kernel", "K4 fused_rollout")):
+        if key in name:
+            return label
+    return "torch: " + name[:70]
 
 
 def profile(args) -> None:
@@ -149,11 +173,7 @@ def profile(args) -> None:
           "share %.4f" % (prof_wall, len(kern), busy, busy / prof_wall))
     by_name = {}
     for e in kern:
-        name = ("K1n fused_ip" if "PlanarPush" in e["name"] else
-                "K1a fused_ip" if "AcrobotImpact" in e["name"] else
-                "K1 fused_ip" if "fused_ip_kernel" in e["name"] else
-                "K2 batched_solve" if "batched_solve_kernel" in e["name"]
-                else "torch: " + e["name"][:70])
+        name = _kernel_label(e["name"])
         n, d = by_name.get(name, (0, 0.0))
         by_name[name] = (n + 1, d + e["dur"] / 1e6)
     for name, (n, d) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:20]:
