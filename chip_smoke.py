@@ -44,22 +44,25 @@ kernels/csrc`` and runs twelve phases, each printing one ``#`` line:
    is not positive definite float32 compares the gains only: its dV2
    overflows); masked gains exactly 0; float32 timed at B=512;
 5. K4 (fused rollout) against its plain version: the deploy IP options,
-   T=51, 1,024 lanes from ``deploy_x0s``, random gains (numpy seed),
+   T=51, 1,024 lanes from ``rollout_batch``, random gains (numpy seed),
    alphas over the Armijo grid, all controls active and a ragged
-   ``u_mask``; float64: per-step converged flags identical on >= 99.5% of
-   lane-steps and max|dx| <= 1e-10 on the lanes whose every step
-   converged in both in the same iteration count; float32: max|dx| <=
-   2e-4 on the lanes whose every step converged in both; then float64
-   K4 against the per-step K1 path (``closed_loop`` without
-   ``rollout_fused``), max|dx| <= 1e-10 on >= 99.5% of lanes; float32
-   timed;
+   ``u_mask``; each case through the wrapper's route and through each of
+   K4's two kernels (tile, per-thread), forced by the width cut; float64:
+   per-step converged flags identical on >= 99.5% of lane-steps and
+   max|dx| <= 1e-10 on the lanes whose every step converged in both in
+   the same iteration count; float32: max|dx| <= 2e-4 on the lanes whose
+   every step converged in both; then float64 K4 against the per-step K1
+   path (``closed_loop`` without ``rollout_fused``; both through K1's
+   tile solve at this width), max|dx| <= 1e-10 on >= 99.5% of lanes;
+   float32 timed through each kernel, with its share of bound;
 6. the slice's main path: the phase-3 solve with K4 for every rollout and
    K3 for every backward pass; outputs finite, the objective below the
-   open-loop one on most lanes, K1, K2, K3 and K4 launched, and K1 (either
-   kernel) launched once per backward pass (by the derivative sweeps
-   only, never per rollout step); then the four-lane float64
-   card-against-CPU check
-   of phase 3 with both kernels on;
+   open-loop one on most lanes, K1, K2, K3 and K4's tile kernel launched,
+   every K4 launch on the kernel its width picks (its launches by kernel
+   and width printed), and K1 (either kernel) launched once per backward
+   pass (by the derivative sweeps only, never per rollout step); then
+   the four-lane float64 card-against-CPU check of phase 3 with both
+   kernels on;
 7. K1n (the fused IP solve at nz=35, planar push) against its plain
    version at the push deploy IP options: 6,400 cold scenarios around the
    nominal pose (the push sweep's width, numpy seed 30), the same 6,400
@@ -81,18 +84,23 @@ kernels/csrc`` and runs twelve phases, each printing one ``#`` line:
    kappa schedule): 25,600 cold scenarios over the swing-up envelope
    (the sweep's width B x (T-1) at B=256, numpy seed 40), the same
    25,600 warm-started one iterate earlier, and 512 cold ones (a rollout
-   step's width, B x 2 alphas); float64: flags and iteration counts
-   identical on every lane, max|dz| <= 1e-12 on every lane; float32:
-   converged count within 1%, max|dq| <= 2e-4; then K2 at (6, 6) on the
-   25,600 IFT systems at K1a's solutions, relative residual <= 1e-12 in
-   float64 and <= 1e-4 in float32; float32 timed;
+   step's width, B x 2 alphas), each through the wrapper's route, and
+   the 512 cold and 25,600 warm through each of K1a's two kernels (tile,
+   per-thread), forced by the width cut; float64: flags and iteration
+   counts identical on every lane, max|dz| <= 1e-12 on every lane;
+   float32: converged count within 1%, max|dq| <= 2e-4, timed, with its
+   share of bound; then K2 at (6, 6) on the 25,600 IFT systems at K1a's
+   solutions, relative residual <= 1e-12 in float64 and <= 1e-4 in
+   float32; float32 timed;
 10. the acrobot main path at full width: the acrobot deploy problem
    (float32, T=101) solved by the segmented executor at B=256 for two AL
    rounds of three inner iterations; outputs finite, the terminal
    violation below the open-loop rollout's on most lanes (the rest start
    costs almost nothing and misses the goal by pi), the elbow within its
-   joint limit, K1a and K2 launched; then the four-lane float64
-   card-against-CPU check of phase 3 on the acrobot;
+   joint limit, K1a's tile kernel and K2 launched, every K1a launch on
+   the kernel its width picks (its launches by kernel and width
+   printed); then the four-lane float64 card-against-CPU check of phase
+   3 on the acrobot;
 11. K5 (the loop-overhead probe) through its entry point
    (``scripts/loop_overhead.py``: each variant timed over 20 launches
    after a warm-up), then each variant against its plain version,
@@ -100,15 +108,19 @@ kernels/csrc`` and runs twelve phases, each printing one ``#`` line:
    plain loop does, so it is expected to match bit for bit).
 
 The kernels' designs are in their wrappers' docstrings
-(``ops/kernels/*.py``). K1 (cartpole) has two kernels, picked by the
-launch's width: up to 16,384 scenarios (the rollout steps and the
-narrowed sweeps) one scenario runs on a 16-thread tile, four tiles a
-block: thread j builds the Newton matrix's column j with one dual-number
-residual, the tile solves it with a column a thread
+(``ops/kernels/*.py``). K1 (cartpole), K1a (acrobot) and K4 (cartpole's
+fused rollout) each have two kernels, picked by the launch's width
+(``FUSED_IP_TILE_MAX_B``): up to the cut (the rollout steps, the
+narrowed sweeps, every K4 launch of the deploy) one scenario runs on a
+tile of threads, 16 for cartpole and 8 for the acrobot, in 64-thread
+blocks: thread j builds the Newton matrix's column j with one
+dual-number residual, the tile solves it with a column a thread
 (``csrc/qr_group.cuh``) and runs the line search's candidates in
-parallel; wider launches (the full sweeps) run one scenario a thread. K2 above 16 unknowns runs one system on a 64-thread block, a
-column a thread; at or below 16, one thread a system. K1n, K1a, K3, K4
-and K5 run one scenario (or one column, K5) a thread.
+parallel; K4's tile runs a scenario's 50 steps, one such solve a step.
+Wider launches (the full sweeps) run one scenario a thread. K2 above 16
+unknowns runs one system on a 64-thread block, a column a thread; at or
+below 16, one thread a system. K1n, K3 and K5 run one scenario (or one
+column, K5) a thread.
 
 Each kernel's ``bound_ms`` is the larger of its bytes (each input read
 once, each output written once) at 3.35 TB/s and its operations at the
@@ -121,12 +133,16 @@ more residual, where R is the residual's arithmetic counted on one lane
 of its plain version.
 
 Any failure raises and the exit code is non-zero. Before the last line it
-prints the ``nvidia-smi`` line and a JSON line of the kernels (``fused_ip``
-is K1's per-thread kernel, timed on 25,600 warm lanes, with K1's time at
-1,024 cold lanes as ``ms_cold_1024``; ``fused_ip_tile`` its tile kernel,
-timed on those 1,024); the last
-line is ``{"ok": true, "device": {...}}``. It needs one card and no
-network.
+prints the ``nvidia-smi`` line and a JSON line of the kernels: each
+kernel of the two-kernel pairs is timed through itself, forced by the
+width cut, and its ``launches`` are the main path's launches of it
+(``fused_ip`` is K1's per-thread kernel, timed on 25,600 warm lanes,
+with K1's time at 1,024 cold lanes as ``ms_cold_1024``; ``fused_ip_tile``
+its tile kernel, timed on those 1,024; ``fused_rollout`` and
+``fused_rollout_tile`` K4's kernels at 1,024 lanes; ``fused_ip_acrobot``
+K1a's per-thread kernel at 25,600 warm lanes, ``fused_ip_acrobot_tile``
+its tile kernel at 512 cold lanes). The last line is ``{"ok": true,
+"device": {...}}``. It needs one card and no network.
 """
 
 from __future__ import annotations
@@ -140,7 +156,7 @@ import numpy as np
 
 from optimization_dynamics_tpu_torch.utils.measure import (
     cuda_ms, envelope_batch, nvidia_smi, push_batch, rel_residual,
-    warm_batch)
+    rollout_batch, routed, warm_batch)
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
@@ -553,29 +569,6 @@ def phase_k3(device) -> dict:
     return out
 
 
-def _rollout_inputs(B: int, seed: int, device, dtype):
-    """K4's inputs: x0s from ``deploy_x0s``, controls around the deploy
-    initial guess, random gains (numpy seed) and alphas over the Armijo
-    grid; the reference states are the zero-gain rollout of the controls
-    (filled in by the caller)."""
-    import torch
-
-    from optimization_dynamics_tpu_torch.examples import cartpole as ex
-
-    T = ex.T
-    rng = np.random.default_rng(seed)
-    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
-    x0s = ex.deploy_x0s(torch.zeros(ex.NX, dtype=dtype, device=device), B,
-                        seed)
-    us0 = np.zeros((T - 1, ex.NU))
-    us0[0, 0] = -1.5
-    uss = t(us0[None] + 0.5 * rng.standard_normal((B, T - 1, ex.NU)))
-    Kss = t(0.1 * rng.standard_normal((B, T - 1, ex.NU, ex.NX)))
-    kss = t(0.2 * rng.standard_normal((B, T - 1, ex.NU)))
-    alphas = t(0.5 ** (np.arange(B) % 8))
-    return x0s, uss, Kss, kss, alphas
-
-
 def _k4_agreement(k, p, dtype, what: str) -> dict:
     """K4 (xss, uss, wss, stats) against its plain version."""
     import torch
@@ -603,6 +596,9 @@ def _k4_agreement(k, p, dtype, what: str) -> dict:
 
 
 def phase_k4(device) -> dict:
+    """K4 through the wrapper's route (the tile kernel at 1,024 scenarios)
+    and through each of its two kernels, forced by the width cut, against
+    the plain version; float32 timed through each kernel."""
     import torch
 
     from optimization_dynamics_tpu_torch.examples import cartpole as ex
@@ -622,7 +618,7 @@ def phase_k4(device) -> dict:
         name = "f64" if dtype == torch.float64 else "f32"
         aux = cartpole.CartpoleAux(h=ex.H, friction=torch.tensor(
             [0.35, 0.35], dtype=dtype, device=device))
-        x0s, uss, Kss, kss, alphas = _rollout_inputs(B, 20, device, dtype)
+        x0s, uss, Kss, kss, alphas = rollout_batch(B, 20, device, dtype)
         kern = make_fused_rollout(model, opts, aux, T, None, device, dtype)
         zero = torch.zeros_like
         xss_ref = kern(x0s, torch.zeros((B, T, ex.NX), dtype=dtype,
@@ -635,25 +631,34 @@ def phase_k4(device) -> dict:
                                       dtype)
             plain = make_fused_rollout_plain(model, opts, aux, T, mask,
                                              device, dtype)
-            k = kern(*args, return_stats=True)
             p = plain(*args)
-            torch.cuda.synchronize()
-            res[case] = _k4_agreement(k, p, dtype, "%s %s" % (name, case))
-            if mask is not None:
-                _check(torch.equal(k[1][:, 10:20], uss[:, 10:20]),
-                       "K4 %s: masked steps moved u" % name)
+            runs = {case: kern}
+            for route in ("tile", "thread"):
+                runs["%s_%s" % (case, route)] = routed(
+                    model.kernel, route == "tile", kern)
+            for key, run in runs.items():
+                k = run(*args, return_stats=True)
+                torch.cuda.synchronize()
+                res[key] = _k4_agreement(k, p, dtype, "%s %s" % (name, key))
+                if mask is not None:
+                    _check(torch.equal(k[1][:, 10:20], uss[:, 10:20]),
+                           "K4 %s %s: masked steps moved u" % (name, key))
+                if dtype == torch.float32 and mask is None:
+                    res[key]["ms"] = cuda_ms(lambda: run(*args))
+                    nx, nu = ex.NX, ex.NU
+                    res[key].update(_bound(
+                        _nbytes(*args, *k[:3]) + (T - 1) * nu * 4,
+                        _ip_flops(model, opts, int(k[3][..., 0].sum()),
+                                  B * (T - 1))
+                        + B * (T - 1) * (2 * nx * nu + 3 * nu)))
+                    res[key]["bound_share"] = (res[key]["bound_ms"]
+                                               / res[key]["ms"])
             if dtype == torch.float32 and mask is None:
-                res[case]["ms"] = cuda_ms(lambda: kern(*args))
                 res[case]["plain_ms"] = cuda_ms(lambda: plain(*args),
                                                  reps=1)
-                nx, nu = ex.NX, ex.NU
-                res[case].update(_bound(
-                    _nbytes(*args, *k[:3]) + (T - 1) * nu * 4,
-                    _ip_flops(model, opts, int(k[3][..., 0].sum()),
-                              B * (T - 1))
-                    + B * (T - 1) * (2 * nx * nu + 3 * nu)))
         if dtype == torch.float64:
-            # against the per-step K1 path: closed_loop without K4
+            # against the per-step K1 path: closed_loop without K4 (both
+            # through ip_solve_tile at this width)
             prob, _, _, o = ex.build_deploy_problem(
                 device, dtype=dtype, ip_overrides=ex.DEPLOY_IP_ACCEL)
             ph = make_phases(prob, o, B, dtype, device)
@@ -679,6 +684,8 @@ def phase_new_path(device) -> dict:
     import torch
 
     from optimization_dynamics_tpu_torch.examples import cartpole as ex
+    from optimization_dynamics_tpu_torch.ops.kernels._build import (
+        FUSED_IP_TILE_MAX_B)
     from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
         batched_solve)
     from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import fused_ip
@@ -707,7 +714,8 @@ def phase_new_path(device) -> dict:
                 "riccati": riccati_backward, "fused_rollout": fused_rollout}
     for c in counters.values():
         c.launches = 0
-    fused_ip.tile_launches = 0
+    fused_ip.tile_launches = fused_rollout.tile_launches = 0
+    fused_rollout.widths.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = solve(x0s, us0)
@@ -716,6 +724,10 @@ def phase_new_path(device) -> dict:
     launches = {k: c.launches for k, c in counters.items()}
     launches["fused_ip"] -= fused_ip.tile_launches
     launches["fused_ip_tile"] = fused_ip.tile_launches
+    launches["fused_rollout"] -= fused_rollout.tile_launches
+    launches["fused_rollout_tile"] = fused_rollout.tile_launches
+    k4_widths = {"%s_%d" % kb: n
+                 for kb, n in sorted(fused_rollout.widths.items())}
 
     for name in ("xs", "us", "objective", "al_objective",
                  "constraint_violation", "lam", "lamT", "rho"):
@@ -724,8 +736,13 @@ def phase_new_path(device) -> dict:
     _check(tuple(res.xs.shape) == (B, ex.T, ex.NX), "xs shape")
     fell = float((res.objective < obj0).float().mean())
     _check(fell >= 0.5, "objective fell on only %.3f of lanes" % fell)
-    for k in ("batched_solve", "riccati", "fused_rollout"):
+    for k in ("batched_solve", "riccati", "fused_rollout_tile"):
         _check(launches[k] > 0, "%s not launched on the new path" % k)
+    # K4's route: each launch on the kernel its width picks
+    cut = FUSED_IP_TILE_MAX_B["fused_rollout", "cartpole_friction"]
+    _check(all((route == "tile") == (b <= cut)
+               for route, b in fused_rollout.widths),
+           "K4 launches off their route: %s" % k4_widths)
     # one derivative sweep (one K1 launch, of either kernel: the sweep
     # narrows as lanes converge) per backward pass (one K3 launch): no K1
     # launch comes from a rollout step
@@ -740,7 +757,8 @@ def phase_new_path(device) -> dict:
                mean_objective=float(obj.mean()),
                mean_initial_objective=float(obj0.mean()),
                objective_fell_frac=fell,
-               mean_inner_iters=float(res.iterations.float().mean()))
+               mean_inner_iters=float(res.iterations.float().mean()),
+               fused_rollout_widths=k4_widths)
 
     # small-input agreement with both kernels on: float64 on the card
     # against the same solve on the CPU (plain versions)
@@ -769,13 +787,18 @@ def _fused_ip_phase(device, batch, opts, n_sweep: int, seeds,
     """A fused-IP instantiation (K1n, K1a) and K2 at its IFT shape against
     their plain versions: ``n_sweep`` cold lanes and the same warm-started
     one iterate earlier (the sweep's width), 512 cold ones (a rollout
-    step's width), then K2 on the sweep's IFT systems at the kernel's cold
-    solutions. ``batch(B, seed, device, dtype) -> (model, z0s, thetas)``;
-    ``seeds``: (cold, warm, 512). ``exact_f64``: every f64 flag and
-    iteration count identical and max|dz| <= 1e-12 on every lane, else z
-    compared where both converge in the same count (<= 1e-10)."""
+    step's width), each through the wrapper's route; for a functor with a
+    tile kernel, the 512 cold and the warm lanes also through each of its
+    two kernels, forced by the width cut (``tile_*``, ``thread_*``); then
+    K2 on the sweep's IFT systems at the kernel's cold solutions.
+    ``batch(B, seed, device, dtype) -> (model, z0s, thetas)``; ``seeds``:
+    (cold, warm, 512). ``exact_f64``: every f64 flag and iteration count
+    identical and max|dz| <= 1e-12 on every lane, else z compared where
+    both converge in the same count (<= 1e-10)."""
     import torch
 
+    from optimization_dynamics_tpu_torch.ops.kernels._build import (
+        FUSED_IP_TILE_MAX_B)
     from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
         batched_solve, batched_solve_plain)
     from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import (
@@ -793,29 +816,40 @@ def _fused_ip_phase(device, batch, opts, n_sweep: int, seeds,
         _, z0s, ths = batch(512, seeds[2], device, dtype)
         cases = {"cold_%d" % n_sweep: (z0c, thc),
                  "warm_%d" % n_sweep: (z0w, thw), "cold_512": (z0s, ths)}
-        res = {}
-        for case, (z0, th) in cases.items():
-            sk, sp = kern(z0, th), plain(z0, th)
+        runs = [(case, case, kern) for case in cases]
+        if ("fused_ip", model.kernel) in FUSED_IP_TILE_MAX_B:
+            runs += [("%s_%s" % (route, case), case,
+                      routed(model.kernel, route == "tile", kern))
+                     for route in ("tile", "thread")
+                     for case in ("cold_512", "warm_%d" % n_sweep)]
+        res, refs = {}, {}
+        for key, case, solve in runs:
+            z0, th = cases[case]
+            if case not in refs:
+                refs[case] = plain(z0, th)
+            sk, sp = solve(z0, th), refs[case]
             torch.cuda.synchronize()
-            res[case] = _k1_agreement(
+            res[key] = _k1_agreement(
                 sk, sp, dtype, nq=model.nq, f32_tol=2e-4,
                 min_same_iters=1.0 if exact_f64 else None)
-            res[case]["mean_iters"] = float(sk.iterations.float().mean())
+            res[key]["mean_iters"] = float(sk.iterations.float().mean())
             if dtype == torch.float64 and exact_f64:
-                _check(res[case]["same_conv"] == 1.0, "%s f64 %s flags "
-                       "differ on some lane" % (model.kernel, case))
+                _check(res[key]["same_conv"] == 1.0, "%s f64 %s flags "
+                       "differ on some lane" % (model.kernel, key))
                 dz = float((sk.z - sp.z).abs().max())
                 _check(dz <= 1e-12, "%s f64 %s max|dz| %.3e"
-                       % (model.kernel, case, dz))
-                res[case]["max_dz_all_lanes"] = dz
+                       % (model.kernel, key, dz))
+                res[key]["max_dz_all_lanes"] = dz
             if dtype == torch.float32:
-                res[case]["ms"] = cuda_ms(lambda: kern(z0, th))
-                res[case]["plain_ms"] = cuda_ms(lambda: plain(z0, th),
-                                                 reps=1)
-                res[case].update(_bound(
+                res[key]["ms"] = cuda_ms(lambda: solve(z0, th))
+                if key == case:
+                    res[key]["plain_ms"] = cuda_ms(lambda: plain(z0, th),
+                                                    reps=1)
+                res[key].update(_bound(
                     _nbytes(z0, th, sk.z) + 4 * z0.shape[0] * 4,
                     _ip_flops(model, opts, int(sk.iterations.sum()),
                               z0.shape[0])))
+                res[key]["bound_share"] = res[key]["bound_ms"] / res[key]["ms"]
 
         # K2 on the IFT systems of the sweep at the kernel's cold solutions
         zs = kern(z0c, thc).z
@@ -966,6 +1000,8 @@ def phase_acrobot(device) -> dict:
     import torch
 
     from optimization_dynamics_tpu_torch.examples import acrobot as ex
+    from optimization_dynamics_tpu_torch.ops.kernels._build import (
+        FUSED_IP_TILE_MAX_B)
     from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
         batched_solve)
     from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import fused_ip
@@ -996,12 +1032,18 @@ def phase_acrobot(device) -> dict:
                 "batched_solve_n6_k6": batched_solve}
     for c in counters.values():
         c.launches = 0
+    fused_ip.tile_launches = 0
+    fused_ip.widths.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = solve(x0s, us0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
+    launches["fused_ip_acrobot"] -= fused_ip.tile_launches
+    launches["fused_ip_acrobot_tile"] = fused_ip.tile_launches
+    k1a_widths = {"%s_%d" % kb: n
+                  for kb, n in sorted(fused_ip.widths.items())}
 
     for name in ("xs", "us", "objective", "al_objective",
                  "constraint_violation", "lamT", "rho"):
@@ -1011,8 +1053,13 @@ def phase_acrobot(device) -> dict:
     fell = float((res.constraint_violation < vio0).float().mean())
     _check(fell >= 0.5, "acrobot terminal violation fell on only %.3f of "
            "lanes" % fell)
-    for k, n in launches.items():
-        _check(n > 0, "%s not launched on the acrobot path" % k)
+    for k in ("fused_ip_acrobot_tile", "batched_solve_n6_k6"):
+        _check(launches[k] > 0, "%s not launched on the acrobot path" % k)
+    # K1a's route: each launch on the kernel its width picks
+    cut = FUSED_IP_TILE_MAX_B["fused_ip", "acrobot_impact"]
+    _check(all((route == "tile") == (b <= cut)
+               for route, b in fused_ip.widths),
+           "K1a launches off their route: %s" % k1a_widths)
     elbow = float(res.xs[..., 3].abs().max())
     _check(elbow <= 0.5 * np.pi + 1e-3, "acrobot elbow %.6f past its "
            "joint limit" % elbow)
@@ -1025,7 +1072,8 @@ def phase_acrobot(device) -> dict:
                mean_violation=float(res.constraint_violation.mean()),
                max_violation=float(res.constraint_violation.max()),
                max_elbow=elbow,
-               mean_inner_iters=float(res.iterations.float().mean()))
+               mean_inner_iters=float(res.iterations.float().mean()),
+               fused_ip_widths=k1a_widths)
 
     # small-input agreement: float64 on the card (K1a + K2) against the
     # same solve on the CPU (plain versions), accelerator IP settings
@@ -1146,7 +1194,8 @@ def main() -> int:
     tpu = "optimization_dynamics_tpu/ops/pallas/"
     k1t, k3t = k1["f32"]["warm_25600"], k3["f32"]["deploy_512"]
     k1r = k1["f32"]["cold_1024"]
-    k4t = k4["f32"]["all_active"]
+    k4t, k4s = k4["f32"]["all_active_thread"], k4["f32"]["all_active_tile"]
+    k4p = k4["f32"]["all_active"]["plain_ms"]
     k2b = k2["f32"]["bound_25600_k8"]
     k1nt, k2p = k1n["f32"]["warm_6400"], k1n["f32"]["k2_ift_6400"]
     kernels = [
@@ -1174,9 +1223,17 @@ def main() -> int:
              source=src + "fused_rollout.cu",
              replaces=tpu + "fused_rollout.py:177",
              max_abs_err=max(k4["f32"][c]["max_dx"]
-                             for c in ("all_active", "ragged")),
-             ms=k4t["ms"], plain_ms=k4t["plain_ms"],
+                             for c in ("all_active_thread", "ragged_thread")),
+             ms=k4t["ms"], plain_ms=k4p,
              bound_ms=k4t["bound_ms"], bound_by=k4t["bound_by"],
+             library_ms=None),
+        dict(name="fused_rollout_tile", route="cuda",
+             source=src + "fused_rollout.cu",
+             replaces=tpu + "fused_rollout.py:177",
+             max_abs_err=max(k4["f32"][c]["max_dx"]
+                             for c in ("all_active_tile", "ragged_tile")),
+             ms=k4s["ms"], plain_ms=k4p,
+             bound_ms=k4s["bound_ms"], bound_by=k4s["bound_by"],
              library_ms=None),
     ]
     for k in kernels:
@@ -1207,17 +1264,27 @@ def main() -> int:
              plain_ms=k2p["plain_ms"], bound_ms=k2p["bound_ms"],
              bound_by=k2p["bound_by"], library_ms=k2p["library_ms"]),
     ]
-    k1at, k2a = k1a["f32"]["warm_25600"], k1a["f32"]["k2_ift_25600"]
+    k1at, k2a = k1a["f32"]["thread_warm_25600"], k1a["f32"]["k2_ift_25600"]
+    k1as = k1a["f32"]["tile_cold_512"]
     k5t = k5["plain"]
     kernels += [
         dict(name="fused_ip_acrobot", route="cuda",
              source=src + "fused_ip_acrobot.cu",
              replaces=tpu + "fused_ip.py:410",
              launches=ac["launches"]["fused_ip_acrobot"],
-             max_abs_err=max(c["max_dq"] for k, c in k1a["f32"].items()
-                             if k != "k2_ift_25600"),
-             ms=k1at["ms"], plain_ms=k1at["plain_ms"],
+             max_abs_err=max(k1a["f32"][c]["max_dq"] for c in
+                             ("thread_cold_512", "thread_warm_25600")),
+             ms=k1at["ms"], plain_ms=k1a["f32"]["warm_25600"]["plain_ms"],
              bound_ms=k1at["bound_ms"], bound_by=k1at["bound_by"],
+             library_ms=None),
+        dict(name="fused_ip_acrobot_tile", route="cuda",
+             source=src + "fused_ip_acrobot.cu",
+             replaces=tpu + "fused_ip.py:410",
+             launches=ac["launches"]["fused_ip_acrobot_tile"],
+             max_abs_err=max(k1a["f32"][c]["max_dq"] for c in
+                             ("tile_cold_512", "tile_warm_25600")),
+             ms=k1as["ms"], plain_ms=k1a["f32"]["cold_512"]["plain_ms"],
+             bound_ms=k1as["bound_ms"], bound_by=k1as["bound_by"],
              library_ms=None),
         dict(name="batched_solve_n6_k6", route="cuda",
              source=src + "batched_solve.cu",

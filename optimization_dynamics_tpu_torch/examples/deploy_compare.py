@@ -59,9 +59,11 @@ COUNTERS = {"fused_ip": fused_ip, "batched_solve": batched_solve,
             "riccati": riccati_backward, "fused_rollout": fused_rollout}
 # kernel-name fragment in a trace -> the port's name for it
 TRACE_NAMES = {"fused_ip_kernel": "K1 fused_ip",
+               "fused_ip_tile_kernel": "K1 fused_ip (tile)",
                "batched_solve_kernel": "K2 batched_solve",
                "riccati_kernel": "K3 riccati",
-               "fused_rollout_kernel": "K4 fused_rollout"}
+               "fused_rollout_kernel": "K4 fused_rollout",
+               "fused_rollout_tile_kernel": "K4 fused_rollout (tile)"}
 
 
 def _card() -> str:

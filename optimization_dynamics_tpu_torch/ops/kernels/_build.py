@@ -40,7 +40,8 @@ __all__ = ["library_path", "build", "load_library", "ptxas_report",
            "FUSED_IP_FUNCTORS", "FUSED_IP_TILE_MAX_B",
            "BATCHED_SOLVE_SHAPES", "RICCATI_SHAPES",
            "FUSED_ROLLOUT_FUNCTORS", "fused_ip_symbol", "fused_ip_tile_symbol",
-           "batched_solve_symbol", "riccati_symbol", "fused_rollout_symbol"]
+           "batched_solve_symbol", "riccati_symbol", "fused_rollout_symbol",
+           "fused_rollout_tile_symbol"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "odt_kernels"
@@ -55,15 +56,22 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 FUSED_IP_FUNCTORS = {"cartpole_friction": (10, 8),  # name -> (nz, ntheta)
                      "planar_push": (35, 13),
                      "acrobot_impact": (6, 6)}
-# functors that also have K1's tile kernel (a 16-thread tile a scenario,
-# csrc/ip_tile.cuh), and the widest batch it takes. A narrow launch
-# leaves most SMs idle with a thread a scenario; a wide one fills the card,
-# and then the per-thread kernel, with fewer instructions a scenario, is
-# the faster. The cut is the widest measured width at which the tile was
-# faster on cold and on warm-started scenarios alike (cold, it loses from
-# 20,480 on; warm, from 25,600: PERF.md section 6, PR 5 runs 2 and 5).
-# The B=512 deploy sends no width between 6,400 and 25,600.
-FUSED_IP_TILE_MAX_B = {"cartpole_friction": 16384}
+# (wrapper, functor) pairs that also have a tile kernel (a tile a
+# scenario, csrc/ip_tile.cuh), and the widest batch the wrapper sends it;
+# wider launches run the per-thread kernel. A narrow launch leaves most
+# SMs idle with a thread a scenario; a wide one fills the card, and then
+# the per-thread kernel, with fewer instructions a scenario, is the
+# faster. Each cut is the widest measured width at which the tile was
+# faster (for K1 and K1a on cold and on warm-started scenarios alike), from
+# the width sweeps of tools/kernel_times.py (PERF.md section 6). K1
+# (cartpole): cold the tile loses from 20,480 on, warm from 25,600; the
+# B=512 deploy sends no width between 6,400 and 25,600. K1a (acrobot): it
+# wins up to 204,800 and loses cold at 409,600; the B=256 deploy sends at
+# most 25,600. K4 (cartpole): it wins at 12,288 and loses at 16,384; the
+# deploy sends at most 2,048.
+FUSED_IP_TILE_MAX_B = {("fused_ip", "cartpole_friction"): 16384,
+                       ("fused_ip", "acrobot_impact"): 204800,
+                       ("fused_rollout", "cartpole_friction"): 12288}
 FUSED_ROLLOUT_FUNCTORS = {"cartpole_friction": (2, 1)}  # name -> (nq, nu)
 BATCHED_SOLVE_SHAPES = frozenset({(10, 8), (10, 1), (35, 13), (6, 6),
                                   (2, 1), (2, 6)})  # (n, k)
@@ -83,6 +91,10 @@ def fused_rollout_symbol(functor: str, dtype: torch.dtype) -> str:
     return "odt_fused_rollout_%s_%s" % (functor, SUFFIX[dtype])
 
 
+def fused_rollout_tile_symbol(functor: str, dtype: torch.dtype) -> str:
+    return "odt_fused_rollout_tile_%s_%s" % (functor, SUFFIX[dtype])
+
+
 def batched_solve_symbol(n: int, k: int, dtype: torch.dtype) -> str:
     return "odt_batched_solve_n%d_k%d_%s" % (n, k, SUFFIX[dtype])
 
@@ -97,9 +109,12 @@ SIGNATURES = {
     **{fused_ip_symbol(f, dt): [_VP, _VP, _VP, _VP, _INT, _VP, _VP, _VP]
        for f in FUSED_IP_FUNCTORS for dt in SUFFIX},
     **{fused_ip_tile_symbol(f, dt): [_VP, _VP, _VP, _VP, _INT, _VP, _VP, _VP]
-       for f in FUSED_IP_TILE_MAX_B for dt in SUFFIX},
+       for w, f in FUSED_IP_TILE_MAX_B if w == "fused_ip" for dt in SUFFIX},
     **{fused_rollout_symbol(f, dt): [_VP] * 11 + [_INT, _INT] + [_VP] * 4
        for f in FUSED_ROLLOUT_FUNCTORS for dt in SUFFIX},
+    **{fused_rollout_tile_symbol(f, dt): [_VP] * 11 + [_INT, _INT] + [_VP] * 4
+       for w, f in FUSED_IP_TILE_MAX_B if w == "fused_rollout"
+       for dt in SUFFIX},
     **{batched_solve_symbol(n, k, dt): [_VP, _VP, _VP, _INT, _VP]
        for n, k in BATCHED_SOLVE_SHAPES for dt in SUFFIX},
     **{riccati_symbol(nx, nu, dt): [_VP] * 14 + [_INT, _INT, _VP]

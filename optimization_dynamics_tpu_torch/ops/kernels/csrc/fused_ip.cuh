@@ -5,9 +5,10 @@
 // design note. Two kernels:
 // * fused_ip_kernel (ODT_FUSED_IP): one thread a scenario; the per-lane
 //   solve is ip_solve_lane (ip_body.cuh), which K4 shares;
-// * fused_ip_tile_kernel (ODT_FUSED_IP_TILE): one 16-thread tile a
-//   scenario, IP_TILES_PER_BLOCK tiles a block; the solve is
-//   ip_solve_tile (ip_tile.cuh). It takes any functor with NZ + 1 <= 16.
+// * fused_ip_tile_kernel (ODT_FUSED_IP_TILE): one tile of
+//   ip_tile_width<M>() threads a scenario (16 for cartpole, 8 for the
+//   acrobot), 64-thread blocks; the solve is ip_solve_tile (ip_tile.cuh),
+//   which K4's tile kernel shares. It takes any functor with NZ + 1 <= 32.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -61,28 +62,25 @@ int launch_fused_ip(const void* z0s, const void* ths, void* zs, void* stats,
   return static_cast<int>(cudaGetLastError());
 }
 
-constexpr int IP_TILE = 16;
-// scenarios a block of the tile kernel (the launch bound follows): 64
-// threads measured tied with 128 (PERF.md section 6, PR 5); 64 kept
-constexpr int IP_TILES_PER_BLOCK = 4;
-
 // One tile a scenario. A tile whose scenario is past B returns as a
 // whole, before any sync; after the loads there is no block-level
 // barrier, so the tiles of a block stop at their own iterations.
 template <typename T, typename M>
-__global__ void __launch_bounds__(IP_TILE * IP_TILES_PER_BLOCK)
+__global__ void __launch_bounds__(IP_TILE_BLOCK, IP_TILE_MIN_BLOCKS)
 fused_ip_tile_kernel(const T* __restrict__ z0s, const T* __restrict__ ths,
                      T* __restrict__ zs_out, T* __restrict__ stats, int B,
                      M model, IPParams<T> p) {
   namespace cg = cooperative_groups;
   constexpr int NZ = M::NZ;
   constexpr int NTH = M::NTH;
-  __shared__ T S[IP_TILES_PER_BLOCK][NZ * (NZ + 1)];
-  __shared__ T vb[IP_TILES_PER_BLOCK][2 * (NZ + 1)];
-  const cg::thread_block_tile<IP_TILE> tile =
-      cg::tiled_partition<IP_TILE>(cg::this_thread_block());
-  const int t = threadIdx.x / IP_TILE;
-  const int64_t lane = (int64_t)blockIdx.x * IP_TILES_PER_BLOCK + t;
+  constexpr int W = ip_tile_width<M>();
+  constexpr int TILES = ip_tiles_per_block<M>();
+  __shared__ T S[TILES][NZ * (NZ + 1)];
+  __shared__ T vb[TILES][2 * (NZ + 1)];
+  const cg::thread_block_tile<W> tile =
+      cg::tiled_partition<W>(cg::this_thread_block());
+  const int t = threadIdx.x / W;
+  const int64_t lane = (int64_t)blockIdx.x * TILES + t;
   if (lane >= B) return;
 
   T z[NZ], th[NTH], st[4];
@@ -91,12 +89,12 @@ fused_ip_tile_kernel(const T* __restrict__ z0s, const T* __restrict__ ths,
 #pragma unroll
   for (int i = 0; i < NTH; ++i) th[i] = ths[lane * NTH + i];
 
-  ip_solve_tile<T, M, IP_TILE>(tile, z, th, model, p, st, S[t], vb[t]);
+  ip_solve_tile<T, M, W>(tile, z, th, model, p, st, S[t], vb[t]);
 
   const int rank = static_cast<int>(tile.thread_rank());
 #pragma unroll
   for (int i = 0; i < NZ; ++i)
-    if (i % IP_TILE == rank) zs_out[lane * NZ + i] = z[i];
+    if (i % W == rank) zs_out[lane * NZ + i] = z[i];
   if (rank == 0) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) stats[lane * 4 + i] = st[i];
@@ -110,9 +108,10 @@ int launch_fused_ip_tile(const void* z0s, const void* ths, void* zs,
   if (B <= 0) return 0;
   const IPParams<T> p = make_ip_params<T>(ip);
   const M model(model_params);
-  const int blocks = (B + IP_TILES_PER_BLOCK - 1) / IP_TILES_PER_BLOCK;
+  constexpr int tiles = ip_tiles_per_block<M>();
+  const int blocks = (B + tiles - 1) / tiles;
   fused_ip_tile_kernel<T, M>
-      <<<blocks, IP_TILE * IP_TILES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+      <<<blocks, IP_TILE_BLOCK, 0, (cudaStream_t)stream>>>(
           static_cast<const T*>(z0s), static_cast<const T*>(ths),
           static_cast<T*>(zs), static_cast<T*>(stats), B, model, p);
   return static_cast<int>(cudaGetLastError());

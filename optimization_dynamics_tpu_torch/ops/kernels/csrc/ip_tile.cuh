@@ -1,6 +1,9 @@
 // The path-following interior-point solve of one scenario on a tile of W
 // threads (a cooperative-groups thread_block_tile<W>): the counterpart of
-// ip_solve_lane (ip_body.cuh) for K1, cartpole (fused_ip.cu).
+// ip_solve_lane (ip_body.cuh) for the tile kernels of K1 (cartpole,
+// fused_ip.cu), K1a (acrobot, fused_ip_acrobot.cu) and K4 (fused_rollout.cu,
+// one solve a rollout step). W is ip_tile_width<M>(): 16 at nz = 10, 8 at
+// nz = 6.
 //
 // It computes what ip_solve_lane computes, in the same order; only the
 // work of one Newton iteration is spread over the tile:
@@ -35,6 +38,31 @@
 #include "qr_group.cuh"
 
 namespace odt {
+
+// The tile of a scenario: the smallest power of two that holds the NZ
+// Jacobian columns and the right-hand side, so a warp holds whole tiles
+template <typename M>
+__host__ __device__ constexpr int ip_tile_width() {
+  int w = 1;
+  while (w < M::NZ + 1) w *= 2;
+  return w;
+}
+
+// threads a block of the tile kernels: 64 measured tied with 128 (PERF.md
+// section 6); 64 kept, so 4 tiles of 16 or 8 tiles of 8 a block
+constexpr int IP_TILE_BLOCK = 64;
+// the tile kernels' __launch_bounds__ minimum of blocks an SM: with 1,
+// ptxas gives a kernel the registers it needs; without it, it held K1a's
+// float32 tile at 96 registers and spilled (PERF.md section 6)
+constexpr int IP_TILE_MIN_BLOCKS = 1;
+
+template <typename M>
+__host__ __device__ constexpr int ip_tiles_per_block() {
+  static_assert(ip_tile_width<M>() <= 32 &&
+                    IP_TILE_BLOCK % ip_tile_width<M>() == 0,
+                "a warp and a block hold whole tiles");
+  return IP_TILE_BLOCK / ip_tile_width<M>();
+}
 
 // Column j of the residual's Jacobian in z into col: one dual-number
 // residual seeded on z[j] (jacobian_column's arithmetic)

@@ -35,14 +35,19 @@ wrapper picks by the launch's width (``FUSED_IP_TILE_MAX_B``):
   scenarios), fill the card either way; the tile's redundant work then
   costs more issue slots than the chain it shortens, and one thread a
   scenario (``csrc/fused_ip.cuh``, 128-thread blocks, ``ip_solve_lane``,
-  which the fused rollout K4 shares) is the faster.
+  which K4's per-thread kernel shares, as its tile kernel shares
+  ``ip_solve_tile``) is the faster.
 
 Both keep the same arithmetic in the same order, so they give the same
 results to rounding. The model enters as a device functor
 (``csrc/cartpole_friction.cuh``) whose residual is a template on the
 number type; dual numbers give the Jacobian columns, as ``jax.jacfwd``
-does inside the Pallas body. K1a (acrobot, nz=6) and K1n (planar push,
-nz=35) run the per-thread kernel at every width.
+does inside the Pallas body. K1a (acrobot, nz=6) has both kernels too:
+its tile is 8 threads (the smallest power of two that holds NZ + 1, as
+16 is for cartpole), eight tiles a block. With half cartpole's redundant
+spine a scenario, its tile wins up to 204,800 scenarios, so it runs
+every launch of the B=256 deploy, the 25,600-wide sweeps too. K1n
+(planar push, nz=35) runs the per-thread kernel at every width.
 
 The plain version is the port of ``make_solver_batched`` (geometric
 schedule) with its Newton solve pinned to K2's plain QR. The wrapper
@@ -99,7 +104,7 @@ def fused_ip(z0s: torch.Tensor, thetas: torch.Tensor, kernel: str,
              plain: Callable) -> IPSolution:
     """The K1 wrapper. CPU tensors run ``plain``; CUDA tensors launch the
     kernel of the device functor ``kernel`` (float32 or float64): the tile
-    kernel for a functor of ``FUSED_IP_TILE_MAX_B`` up to its width
+    kernel up to ``FUSED_IP_TILE_MAX_B["fused_ip", kernel]`` scenarios
     (counted in ``fused_ip.tile_launches`` too), else the per-thread
     kernel. ``fused_ip.widths`` counts the launches by (kernel, B), with
     kernel ``"tile"`` or ``"thread"``."""
@@ -123,7 +128,7 @@ def fused_ip(z0s: torch.Tensor, thetas: torch.Tensor, kernel: str,
                                              tuple(thetas.shape))))
     if B >= 2 ** 31:
         raise ValueError("fused_ip: batch too large for int32")
-    tile = B <= FUSED_IP_TILE_MAX_B.get(kernel, 0)
+    tile = B <= FUSED_IP_TILE_MAX_B.get(("fused_ip", kernel), 0)
     symbol = fused_ip_tile_symbol if tile else fused_ip_symbol
     fn = getattr(load_library(), symbol(kernel, z0s.dtype))
     z0s = z0s.contiguous()

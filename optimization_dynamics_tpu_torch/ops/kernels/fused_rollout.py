@@ -8,26 +8,39 @@ when the problem carries ``rollout_fused``: the open-loop rollout that
 starts a solve (B lanes) and each line-search rung's closed-loop rollout
 (B x alphas lanes: 1,024 for the first rung at B=512), T-1 = 50 steps.
 
-Per lane and step: ``u = u_ref + alpha k + K (x - x_ref)`` on the active
-controls of ``u_mask`` (``u_ref`` elsewhere: the same value as folding
-the mask into K and k, as the Pallas kernel does at ``:150-153``), the
-model's ``pack_theta`` and cold ``init_z(q1)``, the IP solve of K1
-(``ip_solve_lane`` of ``csrc/ip_body.cuh``, the very function K1 runs, so
-the two cannot drift), then ``x = [q1; z[q_sel]]``. Each step's solution
-``z`` goes to ``wss`` for the derivative sweep's warm start, as the
-deploy policy's cold line search hands it on.
+Per scenario and step: ``u = u_ref + alpha k + K (x - x_ref)`` on the
+active controls of ``u_mask`` (``u_ref`` elsewhere: the same value as
+folding the mask into K and k, as the Pallas kernel does at
+``:150-153``), the model's ``pack_theta`` and cold ``init_z(q1)``, the IP
+solve of K1 (the very device function K1 runs, so the two cannot drift),
+then ``x = [q1; z[q_sel]]``. Each step's solution ``z`` goes to ``wss``
+for the derivative sweep's warm start, as the deploy policy's cold line
+search hands it on.
 
-What bounds it on an H100: latency, as K1. A lane reads its gains and
-references (11 values a step) and writes 15, then runs T-1 = 50
+What bounds it on an H100: latency, as K1. A scenario reads its gains
+and references (11 values a step) and writes 15, then runs T-1 = 50
 data-dependent Newton loops in sequence; the bytes are nothing beside
-the arithmetic, and the arithmetic of a batch of 1,024 lanes fills few
-SMs. The design gives each scenario one thread that keeps x and the IP
-state in registers for the whole rollout and reads the gains from
-device memory one step at a time. Blocks are 32 threads, so the 32
-warps of 1,024 lanes run on 32 SMs instead of 8 blocks of 128 on 8 SMs
-(a warp per SM sub-partition either way; fewer warps share an SM's L1,
-where the IP state spills). One launch replaces a rollout's 50 K1
-launches and their ~20 small glue ops per step.
+the arithmetic, and a batch of 1,024 scenarios at a thread each fills 32
+warps on 32 of the 132 SMs, each thread running 50 serial solves. Two
+kernels (``csrc/fused_rollout.cu``), picked by the launch's width (K4's
+entry of ``FUSED_IP_TILE_MAX_B``, measured as K1's is):
+
+* Up to the cut, every launch of the deploy (B, B x alphas and the
+  narrower widths after compaction): one tile a scenario, 16 threads for
+  cartpole, four tiles a 64-thread block. Every thread of the tile holds
+  x, alpha and the step's u, computed in the same order, so the tile
+  branches together; each step's solve is ``ip_solve_tile``
+  (``csrc/ip_tile.cuh``), K1's tile solve: a Jacobian column a thread, a
+  column-per-thread QR, the line search's candidates at once. The
+  stores are spread over the tile's threads.
+* Above it (no deploy width): one thread a scenario in 32-thread blocks,
+  each step's solve ``ip_solve_lane`` (``csrc/ip_body.cuh``), K1's
+  per-thread solve. Once the tiles fill the card (16,384 scenarios) it is
+  the faster, with fewer instructions a scenario (PERF.md section 6).
+
+``fused_rollout.widths`` counts the launches by (kernel, B). One launch
+replaces a rollout's 50 K1 launches and their ~20 small glue ops per
+step.
 
 ``fused_rollout_plain`` is the plain PyTorch version: a loop over steps
 through K1's plain version (``make_fused_ip_plain``). The wrapper takes
@@ -37,6 +50,7 @@ raises.
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Callable
 
 import numpy as np
@@ -44,9 +58,11 @@ import torch
 
 from optimization_dynamics_tpu_torch.ops.kernels._build import (
     FUSED_IP_FUNCTORS,
+    FUSED_IP_TILE_MAX_B,
     FUSED_ROLLOUT_FUNCTORS,
     SUFFIX,
     fused_rollout_symbol,
+    fused_rollout_tile_symbol,
     load_library,
 )
 from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import (
@@ -96,9 +112,13 @@ def fused_rollout(x0s, xss_ref, uss_ref, Kss, kss, alphas, u_mask,
                   plain: Callable, return_stats: bool = False):
     """The K4 wrapper; ``u_mask`` (T-1, nu), nonzero = active. CPU tensors
     run ``plain`` (``fused_rollout_plain`` bound to the model); CUDA
-    tensors launch the kernel of the device functor ``kernel`` (float32
-    or float64) and raise on anything else. Returns ``(xss, uss, wss)``
-    and, with ``return_stats``, each step's solve stats (B, T-1, 4)."""
+    tensors launch a kernel of the device functor ``kernel`` (float32 or
+    float64) and raise on anything else: the tile kernel up to
+    ``FUSED_IP_TILE_MAX_B["fused_rollout", kernel]`` scenarios (counted in
+    ``fused_rollout.tile_launches`` too), else the per-thread kernel.
+    ``fused_rollout.widths`` counts the launches by (kernel, B), kernel
+    ``"tile"`` or ``"thread"``. Returns ``(xss, uss, wss)`` and, with
+    ``return_stats``, each step's solve stats (B, T-1, 4)."""
     ins = (x0s, xss_ref, uss_ref, Kss, kss, alphas)
     if all(a.device.type == "cpu" for a in ins + (u_mask,)):
         out = plain(*ins, u_mask)
@@ -140,7 +160,9 @@ def fused_rollout(x0s, xss_ref, uss_ref, Kss, kss, alphas, u_mask,
     stats = (torch.empty((B, Tm1, 4), dtype=dtype, device=dev)
              if return_stats else None)
     if B > 0:
-        fn = getattr(load_library(), fused_rollout_symbol(kernel, dtype))
+        tile = B <= FUSED_IP_TILE_MAX_B.get(("fused_rollout", kernel), 0)
+        symbol = fused_rollout_tile_symbol if tile else fused_rollout_symbol
+        fn = getattr(load_library(), symbol(kernel, dtype))
         with torch.cuda.device(dev):
             err = fn(*(a.data_ptr() for a in ins), mask.data_ptr(),
                      xss.data_ptr(), uss.data_ptr(), wss.data_ptr(),
@@ -152,10 +174,14 @@ def fused_rollout(x0s, xss_ref, uss_ref, Kss, kss, alphas, u_mask,
             raise RuntimeError("fused_rollout kernel launch failed: CUDA "
                                "error %d" % err)
         fused_rollout.launches += 1
+        fused_rollout.tile_launches += tile
+        fused_rollout.widths["tile" if tile else "thread", B] += 1
     return (xss, uss, wss, stats) if return_stats else (xss, uss, wss)
 
 
 fused_rollout.launches = 0
+fused_rollout.tile_launches = 0
+fused_rollout.widths = Counter()
 
 
 def _theta_tail(model, aux, device, dtype) -> np.ndarray:

@@ -7,24 +7,30 @@ inputs, so two checkouts that both have this module time the same work:
   ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
   prints them;
 * ``cuda_ms``: the median of CUDA-event times of a call;
+* ``kernel_route``, ``routed``: every K1 and K4 launch of a functor sent
+  to its tile kernel or to its per-thread kernel, for a block of code or
+  a call;
 * ``rel_residual``: the relative residual of batched solves;
 * ``envelope_batch``, ``warm_batch``: cold cartpole-friction IP solves
   over the swing-up envelope, and their warm starts one iterate earlier
   (the derivative sweep's);
-* ``push_batch``: cold planar-push IP solves around the nominal pose.
+* ``push_batch``: cold planar-push IP solves around the nominal pose;
+* ``rollout_batch``: K4's inputs at the cartpole deploy's shapes.
 
 Every input comes from a numpy seed.
 """
 
 from __future__ import annotations
 
+import contextlib
 import subprocess
 
 import numpy as np
 import torch
 
-__all__ = ["nvidia_smi", "cuda_ms", "rel_residual", "envelope_batch",
-           "warm_batch", "push_batch"]
+__all__ = ["nvidia_smi", "cuda_ms", "kernel_route", "routed",
+           "rel_residual", "envelope_batch", "warm_batch", "push_batch",
+           "rollout_batch"]
 
 
 def nvidia_smi() -> str:
@@ -49,6 +55,32 @@ def cuda_ms(fn, reps: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+@contextlib.contextmanager
+def kernel_route(functor: str, tile: bool):
+    """Within the block, every K1 and K4 launch of ``functor`` runs its
+    tile kernel (``tile``) or its per-thread kernel, whatever its width:
+    the wrappers' width cuts ``FUSED_IP_TILE_MAX_B`` set for the block."""
+    from optimization_dynamics_tpu_torch.ops.kernels._build import (
+        FUSED_IP_TILE_MAX_B)
+
+    keys = [k for k in FUSED_IP_TILE_MAX_B if k[1] == functor]
+    old = {k: FUSED_IP_TILE_MAX_B[k] for k in keys}
+    FUSED_IP_TILE_MAX_B.update({k: 2 ** 31 if tile else 0 for k in keys})
+    try:
+        yield
+    finally:
+        FUSED_IP_TILE_MAX_B.update(old)
+
+
+def routed(functor: str, tile: bool, fn):
+    """``fn`` with every K1 and K4 launch of ``functor`` on its tile kernel
+    (``tile``) or on its per-thread kernel (``kernel_route``)."""
+    def call(*args, **kwargs):
+        with kernel_route(functor, tile):
+            return fn(*args, **kwargs)
+    return call
 
 
 def rel_residual(A, x, b) -> float:
@@ -108,3 +140,25 @@ def push_batch(B: int, seed: int, device, dtype):
     q1_t = t(q1)
     return model, model.init_z(q1_t), model.theta_fn(
         t(q0), q1_t, t(u), pp.PlanarPushAux(h=0.1))
+
+
+def rollout_batch(B: int, seed: int, device, dtype):
+    """K4's inputs at the cartpole deploy's shapes (T=51): ``(x0s, uss,
+    Kss, kss, alphas)``, x0s from ``deploy_x0s``, controls around the
+    deploy's initial guess, random gains and alphas over the Armijo grid,
+    from a numpy seed. The reference states are the caller's: K4's
+    zero-gain rollout of the controls."""
+    from optimization_dynamics_tpu_torch.examples import cartpole as ex
+
+    T = ex.T
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    x0s = ex.deploy_x0s(torch.zeros(ex.NX, dtype=dtype, device=device), B,
+                        seed)
+    us0 = np.zeros((T - 1, ex.NU))
+    us0[0, 0] = -1.5
+    uss = t(us0[None] + 0.5 * rng.standard_normal((B, T - 1, ex.NU)))
+    Kss = t(0.1 * rng.standard_normal((B, T - 1, ex.NU, ex.NX)))
+    kss = t(0.2 * rng.standard_normal((B, T - 1, ex.NU)))
+    alphas = t(0.5 ** (np.arange(B) % 8))
+    return x0s, uss, Kss, kss, alphas

@@ -3,14 +3,15 @@
 The CUDA sources compile only on a machine with the card, so these tests
 check what can be checked without ``nvcc``: that every C entry point the
 wrappers call (``_build.SIGNATURES``) is instantiated by exactly one line
-of ``csrc/*.cu``, that the functors given K1's tile kernel fit a tile,
-that the library's name follows its sources, that ``ptxas_report`` reads
-a ``-Xptxas -v`` log, and that the K1 wrapper runs its plain version on
-CPU tensors.
+of ``csrc/*.cu``, that the functors given the tile kernels (K1's, K4's)
+fit a tile, that the library's name follows its sources, that
+``ptxas_report`` reads a ``-Xptxas -v`` log, and that the K1 and K4
+wrappers run their plain versions on CPU tensors.
 """
 
 import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -25,6 +26,8 @@ def _instantiated_symbols():
                                                                      a[2]),
         "ODT_FUSED_ROLLOUT": lambda a: "odt_fused_rollout_%s_%s" % (a[0],
                                                                      a[2]),
+        "ODT_FUSED_ROLLOUT_TILE": lambda a: "odt_fused_rollout_tile_%s_%s" % (
+            a[0], a[2]),
         "ODT_BATCHED_SOLVE": lambda a: "odt_batched_solve_n%s_k%s_%s" % (
             a[0], a[1], a[2]),
         "ODT_RICCATI": lambda a: "odt_riccati_nx%s_nu%s_%s" % (a[0], a[1],
@@ -46,17 +49,28 @@ def test_every_entry_point_is_instantiated_once():
 
 
 def test_tile_functors_fit_a_tile():
-    """K1's tile kernel holds the NZ Jacobian columns and the right-hand
-    side on one 16-thread tile (csrc/fused_ip.cuh, IP_TILE)."""
-    text = (_build.CSRC / "fused_ip.cuh").read_text()
-    tile = int(re.search(r"constexpr int IP_TILE = (\d+);", text)[1])
-    assert tile == 16
-    for functor, max_b in _build.FUSED_IP_TILE_MAX_B.items():
+    """A functor's tile (csrc/ip_tile.cuh, ip_tile_width) is the smallest
+    power of two that holds its NZ Jacobian columns and the right-hand
+    side: at most a warp, whole tiles to a block of IP_TILE_BLOCK
+    threads. Every (wrapper, functor) entry of FUSED_IP_TILE_MAX_B has its
+    tile kernel's entry points: K1's, or K4's for a functor with a fused
+    rollout."""
+    text = (_build.CSRC / "ip_tile.cuh").read_text()
+    block = int(re.search(r"constexpr int IP_TILE_BLOCK = (\d+);", text)[1])
+    assert re.search(r"while \(w < M::NZ \+ 1\) w \*= 2;", text)
+    symbol = {"fused_ip": _build.fused_ip_tile_symbol,
+              "fused_rollout": _build.fused_rollout_tile_symbol}
+    widths = {}
+    for (wrapper, functor), max_b in _build.FUSED_IP_TILE_MAX_B.items():
         nz, _ = _build.FUSED_IP_FUNCTORS[functor]
-        assert nz + 1 <= tile and max_b > 0
+        width = 1 << nz.bit_length()     # smallest power of two >= nz + 1
+        assert nz + 1 <= width <= 32 and block % width == 0 and max_b > 0
+        widths[functor] = width
         for dt in (torch.float32, torch.float64):
-            assert _build.fused_ip_tile_symbol(functor, dt) \
-                in _build.SIGNATURES
+            assert symbol[wrapper](functor, dt) in _build.SIGNATURES
+    assert widths == {"cartpole_friction": 16, "acrobot_impact": 8}
+    assert {("fused_rollout", f) for f in _build.FUSED_ROLLOUT_FUNCTORS} \
+        <= set(_build.FUSED_IP_TILE_MAX_B)
 
 
 def test_library_is_named_by_its_sources(tmp_path, monkeypatch):
@@ -124,3 +138,43 @@ def test_fused_ip_wrapper_runs_plain_on_cpu_at_any_width(dtype):
     assert dict(fused_ip.widths) == widths
     assert torch.equal(got.z, ref.z)
     assert torch.equal(got.iterations, ref.iterations)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_rollout_wrapper_runs_plain_on_cpu_at_any_width(dtype,
+                                                              monkeypatch):
+    """On CPU tensors the K4 wrapper runs its plain version whatever the
+    width, at and above its cut (set to 2 here), and counts no launch of
+    either kernel."""
+    from optimization_dynamics_tpu_torch.examples.cartpole import (
+        DEPLOY_IP_ACCEL)
+    from optimization_dynamics_tpu_torch.models import cartpole
+    from optimization_dynamics_tpu_torch.ops.kernels.fused_rollout import (
+        fused_rollout, make_fused_rollout, make_fused_rollout_plain)
+    from optimization_dynamics_tpu_torch.solver.interior_point import (
+        IPOptions)
+
+    monkeypatch.setitem(_build.FUSED_IP_TILE_MAX_B,
+                        ("fused_rollout", "cartpole_friction"), 2)
+    model = cartpole.friction_model()
+    opts = IPOptions(**DEPLOY_IP_ACCEL)
+    cpu, T = torch.device("cpu"), 4
+    aux = cartpole.CartpoleAux(h=0.05, friction=torch.tensor(
+        [0.35, 0.35], dtype=dtype))
+    rng = np.random.default_rng(3)
+    for B in (1, 2, 3):
+        t = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=dtype)
+        args = (0.01 * t(B, 4), 0.01 * t(B, T, 4), 0.5 * t(B, T - 1, 1),
+                0.1 * t(B, T - 1, 1, 4), 0.2 * t(B, T - 1, 1),
+                torch.full((B,), 0.5, dtype=dtype))
+        launches, tiles = fused_rollout.launches, fused_rollout.tile_launches
+        widths = dict(fused_rollout.widths)
+        got = make_fused_rollout(model, opts, aux, T, None, cpu, dtype)(
+            *args, return_stats=True)
+        ref = make_fused_rollout_plain(model, opts, aux, T, None, cpu,
+                                       dtype)(*args)
+        assert (fused_rollout.launches,
+                fused_rollout.tile_launches) == (launches, tiles)
+        assert dict(fused_rollout.widths) == widths
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)

@@ -27,9 +27,15 @@ plain version in every variant (it rounds each product and sum as the
 plain loop does, so it is expected to agree bit for bit). K1's tile
 kernel (a 16-thread tile a scenario, launches up to 16,384 scenarios) in
 float64 with flags and iteration counts identical to the plain version's
-(with ``max_ls`` = 20 too, two line-search chunks); K2 at (35, 13) (a
-64-thread block a system) with float64 relative residual <= 1e-12 on
-ragged batches and KKT-like saddle systems.
+(with ``max_ls`` = 20 too, two line-search chunks); K1a's tile kernel (an
+8-thread tile) and its per-thread kernel as K1a, each forced by the
+wrapper's width cut, on ragged tiles and with ``max_ls`` = 20 (three
+chunks) too; K4's tile kernel (a 16-thread tile a scenario) and its
+per-thread kernel as K4, each forced by the cut, at 1,024 scenarios and
+T=51, and on ragged batches with every step's flags and iteration counts
+identical; K2 at (35, 13) (a 64-thread block a system) with float64
+relative residual <= 1e-12 on ragged batches and KKT-like saddle
+systems.
 """
 
 import numpy as np
@@ -70,7 +76,10 @@ from optimization_dynamics_tpu_torch.ops.kernels.riccati import (
     riccati_backward_plain,
 )
 from optimization_dynamics_tpu_torch.solver.interior_point import IPOptions
-from optimization_dynamics_tpu_torch.utils.measure import rel_residual
+from optimization_dynamics_tpu_torch.utils.measure import (
+    rel_residual,
+    rollout_batch,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -247,39 +256,123 @@ def _rollout_inputs(B, T, seed, device, dtype):
     return x0s, uss, Kss, kss, alphas
 
 
-@pytest.mark.parametrize("ragged", [False, True])
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_fused_rollout_kernel_matches_plain(card, dtype, ragged):
-    T, B = 21, 256
+def _rollout_case(B, T, seed, device, dtype, mask=None, deploy=False):
+    """K4 through its wrapper, its plain version, and their inputs
+    (``_rollout_inputs``, or with ``deploy`` ``rollout_batch``, the
+    deploy's T=51 shapes and distribution, as ``chip_smoke.py`` phase 5
+    takes them): the reference states the wrapper's zero-gain rollout of
+    the controls."""
     model = cartpole.friction_model()
     aux = cartpole.CartpoleAux(h=0.05, friction=torch.tensor(
-        [0.35, 0.35], dtype=dtype, device=card))
-    mask = np.ones((T - 1, 1), bool)
-    if ragged:
-        mask[5:9] = False
-    x0s, uss, Kss, kss, alphas = _rollout_inputs(B, T, 8, card, dtype)
-    kern = make_fused_rollout(model, OPTS, aux, T, mask, card, dtype)
-    plain = make_fused_rollout_plain(model, OPTS, aux, T, mask, card, dtype)
-    zero = torch.zeros_like(alphas)
-    xss_ref = kern(x0s, torch.zeros((B, T, 4), dtype=dtype, device=card),
-                   uss, 0 * Kss, 0 * kss, zero)[0]
-    before = fused_rollout.launches
-    xk, uk, wk, sk = kern(x0s, xss_ref, uss, Kss, kss, alphas,
-                          return_stats=True)
-    assert fused_rollout.launches == before + 1
-    xp, up, wp, sp = plain(x0s, xss_ref, uss, Kss, kss, alphas)
+        [0.35, 0.35], dtype=dtype, device=device))
+    x0s, uss, Kss, kss, alphas = (
+        rollout_batch(B, seed, device, dtype) if deploy
+        else _rollout_inputs(B, T, seed, device, dtype))
+    kern = make_fused_rollout(model, OPTS, aux, T, mask, device, dtype)
+    plain = make_fused_rollout_plain(model, OPTS, aux, T, mask, device,
+                                     dtype)
+    xss_ref = kern(x0s, torch.zeros((B, T, 4), dtype=dtype, device=device),
+                   uss, 0 * Kss, 0 * kss, 0 * alphas)[0]
+    return kern, plain, (x0s, xss_ref, uss, Kss, kss, alphas)
+
+
+def _assert_rollout_close(got, ref, dtype, min_every=0.9):
+    """K4's (xss, uss, wss, stats) against the plain version's at the
+    module's tolerances: float64 per-step flags on >= 99.5% of lane-steps
+    and states within 1e-10 where every step of both converged, float32
+    states within 2e-4 there."""
+    xk, _, wk, sk = got
+    xp, _, _, sp = ref
     assert bool(torch.isfinite(xk).all() & torch.isfinite(wk).all())
     ck, cp = sk[..., 1] > 0.5, sp[..., 1] > 0.5
     every = (ck.all(dim=1) & cp.all(dim=1)).cpu()
-    assert every.float().mean() >= 0.9
+    assert every.float().mean() >= min_every
     dx = (xk - xp).abs().amax(dim=(1, 2)).cpu()[every]
     if dtype == torch.float64:
         assert float((ck == cp).float().mean()) >= 0.995
         assert float(dx.max()) <= 1e-10
     else:
         assert float(dx.max()) <= 2e-4
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fused_rollout_kernel_matches_plain(card, dtype, ragged):
+    T, B = 21, 256
+    mask = np.ones((T - 1, 1), bool)
     if ragged:
-        assert torch.equal(uk[:, 5:9], uss[:, 5:9])
+        mask[5:9] = False
+    kern, plain, args = _rollout_case(B, T, 8, card, dtype, mask)
+    before = fused_rollout.launches
+    got = kern(*args, return_stats=True)
+    assert fused_rollout.launches == before + 1
+    _assert_rollout_close(got, plain(*args), dtype)
+    if ragged:
+        assert torch.equal(got[1][:, 5:9], args[2][:, 5:9])
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fused_rollout_kernels_match_plain_at_rollout_width(
+        card, monkeypatch, dtype, ragged):
+    """Each of K4's two kernels, forced by the wrapper's width cut, at a
+    line-search rung's width (B x 2 alphas = 1,024 scenarios at B=512,
+    T=51, on phase 5's inputs) against the plain version."""
+    T, B = 51, 1024
+    mask = np.ones((T - 1, 1), bool)
+    if ragged:
+        mask[10:20] = False
+    kern, plain, args = _rollout_case(B, T, 20, card, dtype, mask,
+                                      deploy=True)
+    ref = plain(*args)
+    for tile in (1, 0):
+        monkeypatch.setitem(FUSED_IP_TILE_MAX_B,
+                            ("fused_rollout", "cartpole_friction"),
+                            B if tile else 0)
+        tiles = fused_rollout.tile_launches
+        got = kern(*args, return_stats=True)
+        assert fused_rollout.tile_launches == tiles + tile
+        _assert_rollout_close(got, ref, dtype)
+        if ragged:
+            assert torch.equal(got[1][:, 10:20], args[2][:, 10:20])
+
+
+@pytest.mark.parametrize("B", [1, 3, 5, 65])
+def test_fused_rollout_tile_kernel_ragged_batch(card, B):
+    """Batches that cut the tile kernel's block (4 scenarios) and a warp's
+    tile pair: every step's float64 flags and iteration counts as the
+    plain version's, states within 1e-10 where every step converged."""
+    kern, plain, args = _rollout_case(B, 21, 11, card, torch.float64)
+    tiles = fused_rollout.tile_launches
+    got = kern(*args, return_stats=True)
+    assert fused_rollout.tile_launches == tiles + 1
+    ref = plain(*args)
+    assert tuple(got[0].shape) == (B, 21, 4)
+    assert tuple(got[2].shape) == (B, 20, 10)
+    np.testing.assert_array_equal(got[3][..., :2].cpu().numpy(),
+                                  ref[3][..., :2].cpu().numpy())
+    _assert_rollout_close(got, ref, torch.float64, min_every=0.0)
+
+
+def test_fused_rollout_kernels_route_by_width(card):
+    """Up to K4's cut in FUSED_IP_TILE_MAX_B the tile kernel runs, above
+    it the per-thread kernel; both give the plain version's float64
+    flags."""
+    limit = FUSED_IP_TILE_MAX_B["fused_rollout", "cartpole_friction"]
+    kern, plain, args = _rollout_case(limit + 1, 3, 12, card, torch.float64)
+    for B, tile in ((limit, 1), (limit + 1, 0)):
+        sub = tuple(a[:B] for a in args)
+        launches = fused_rollout.launches
+        tiles = fused_rollout.tile_launches
+        width = fused_rollout.widths["tile" if tile else "thread", B]
+        got = kern(*sub, return_stats=True)
+        assert fused_rollout.launches == launches + 1
+        assert fused_rollout.tile_launches == tiles + tile
+        assert fused_rollout.widths["tile" if tile else "thread",
+                                    B] == width + 1
+        ref = plain(*sub)
+        assert float(((got[3][..., 1] > 0.5) == (ref[3][..., 1] > 0.5))
+                     .float().mean()) >= 0.995
 
 
 def test_k3_k4_wrappers_raise_on_unsupported_input(card):
@@ -413,7 +506,7 @@ def test_fused_ip_tile_kernel_line_search_in_chunks(card):
 def test_fused_ip_kernels_route_by_width(card):
     """Up to FUSED_IP_TILE_MAX_B scenarios the tile kernel runs, above it
     the per-thread kernel; both give the plain version's float64 flags."""
-    limit = FUSED_IP_TILE_MAX_B["cartpole_friction"]
+    limit = FUSED_IP_TILE_MAX_B["fused_ip", "cartpole_friction"]
     model, z0s, ths = _envelope(limit + 1, 19, card, torch.float64)
     solve = make_fused_ip_solver(model, OPTS, card, torch.float64)
     plain = make_fused_ip_plain(model, OPTS, card, torch.float64)
@@ -535,6 +628,89 @@ def test_fused_ip_acrobot_kernel_ragged_batch(card):
         assert tuple(sk.z.shape) == (B, 6)
         np.testing.assert_array_equal(sk.converged.cpu().numpy(),
                                       sp.converged.cpu().numpy())
+
+
+def _assert_acrobot_exact(sk, sp):
+    """float64 K1a against its plain version: flags and iteration counts
+    identical on every lane, max|dz| <= 1e-12."""
+    np.testing.assert_array_equal(sk.converged.cpu().numpy(),
+                                  sp.converged.cpu().numpy())
+    np.testing.assert_array_equal(sk.iterations.cpu().numpy(),
+                                  sp.iterations.cpu().numpy())
+    assert float((sk.z - sp.z).abs().max()) <= 1e-12
+
+
+@pytest.mark.parametrize("B", [1, 3, 5, 9, 129])
+def test_fused_ip_acrobot_tile_kernel_ragged_tiles(card, B):
+    """K1a's tile kernel (an 8-thread tile a scenario, four tiles a warp,
+    eight a block) on batches that cut a warp's or a block's tiles."""
+    model, z0s, ths = acrobot_ex.envelope_batch(B, 24, card, torch.float64)
+    tiles = fused_ip.tile_launches
+    sk = make_fused_ip_solver(model, ACROBOT_OPTS, card, torch.float64)(
+        z0s, ths)
+    assert fused_ip.tile_launches == tiles + 1
+    assert tuple(sk.z.shape) == (B, 6)
+    assert bool(torch.isfinite(sk.z).all())
+    _assert_acrobot_exact(sk, make_fused_ip_plain(
+        model, ACROBOT_OPTS, card, torch.float64)(z0s, ths))
+
+
+def test_fused_ip_acrobot_tile_kernel_line_search_in_chunks(card):
+    """max_ls = 20 candidates on an 8-thread tile: the sweep runs in three
+    chunks; float64 flags and iteration counts as the plain version's."""
+    opts = IPOptions(**{**acrobot_ex.DEPLOY_IP_ACCEL,
+                        **acrobot_ex.DEPLOY_KAPPA_SCHEDULE, "max_ls": 20})
+    model, z0s, ths = acrobot_ex.envelope_batch(1024, 25, card,
+                                                torch.float64)
+    tiles = fused_ip.tile_launches
+    sk = make_fused_ip_solver(model, opts, card, torch.float64)(z0s, ths)
+    assert fused_ip.tile_launches == tiles + 1
+    _assert_acrobot_exact(sk, make_fused_ip_plain(
+        model, opts, card, torch.float64)(z0s, ths))
+
+
+@pytest.mark.parametrize("start", ["cold", "warm"])
+def test_fused_ip_acrobot_thread_kernel_matches_plain(card, monkeypatch,
+                                                       start):
+    """K1a's per-thread kernel, forced by the wrapper's width cut."""
+    monkeypatch.setitem(FUSED_IP_TILE_MAX_B, ("fused_ip", "acrobot_impact"),
+                        0)
+    model, z0s, ths = acrobot_ex.envelope_batch(2000, 26, card,
+                                                torch.float64)
+    kern = make_fused_ip_solver(model, ACROBOT_OPTS, card, torch.float64)
+    if start == "warm":
+        z0s = _warm(kern, model, z0s, ths, 27)
+    tiles = fused_ip.tile_launches
+    sk = kern(z0s, ths)
+    assert fused_ip.tile_launches == tiles
+    _assert_acrobot_exact(sk, make_fused_ip_plain(
+        model, ACROBOT_OPTS, card, torch.float64)(z0s, ths))
+
+
+def test_fused_ip_acrobot_kernels_route_by_width(card):
+    """Up to FUSED_IP_TILE_MAX_B["fused_ip", "acrobot_impact"] (204,800)
+    scenarios the tile kernel runs, above it the per-thread kernel; both
+    give the plain version's float64 flags and iteration counts on every
+    lane and its z within 1e-12 on the converged lanes. (At this width a
+    few of the ~650 unconverged lanes end up to 5e-8 apart through either
+    kernel: their last iterates are not at a solution.)"""
+    limit = FUSED_IP_TILE_MAX_B["fused_ip", "acrobot_impact"]
+    model, z0s, ths = acrobot_ex.envelope_batch(limit + 1, 28, card,
+                                                torch.float64)
+    solve = make_fused_ip_solver(model, ACROBOT_OPTS, card, torch.float64)
+    plain = make_fused_ip_plain(model, ACROBOT_OPTS, card, torch.float64)
+    for B, tile in ((limit, 1), (limit + 1, 0)):
+        launches, tiles = fused_ip.launches, fused_ip.tile_launches
+        sk = solve(z0s[:B], ths[:B])
+        assert fused_ip.launches == launches + 1
+        assert fused_ip.tile_launches == tiles + tile
+        sp = plain(z0s[:B], ths[:B])
+        np.testing.assert_array_equal(sk.converged.cpu().numpy(),
+                                      sp.converged.cpu().numpy())
+        np.testing.assert_array_equal(sk.iterations.cpu().numpy(),
+                                      sp.iterations.cpu().numpy())
+        conv = sp.converged
+        assert float((sk.z - sp.z)[conv].abs().max()) <= 1e-12
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),

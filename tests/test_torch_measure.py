@@ -1,15 +1,22 @@
 """The shared measurement inputs and timers of ``utils/measure.py``, on
-the CPU: the kernel inputs are the same for the same seed, and the
-relative residual reads an exact solve as exact."""
+the CPU: the kernel inputs are the same for the same seed, the relative
+residual reads an exact solve as exact, and ``kernel_route`` and
+``routed`` set and restore the wrappers' width cuts."""
 
 import numpy as np
 import pytest
 import torch
 
+from optimization_dynamics_tpu_torch.ops.kernels._build import (
+    FUSED_IP_TILE_MAX_B,
+)
 from optimization_dynamics_tpu_torch.utils.measure import (
     envelope_batch,
+    kernel_route,
     push_batch,
     rel_residual,
+    rollout_batch,
+    routed,
     warm_batch,
 )
 
@@ -54,3 +61,38 @@ def test_rel_residual_of_exact_and_perturbed_solves():
     assert rel_residual(A, x, b) < 1e-14
     x[1, 2, 0] += 1e-3
     assert rel_residual(A, x, b) > 1e-5
+
+
+def test_rollout_batch_follows_its_seed():
+    """K4's inputs at the deploy's shapes (T=51, nx=4, nu=1)."""
+    x0s, uss, Kss, kss, alphas = rollout_batch(9, 0, CPU, torch.float64)
+    again = rollout_batch(9, 0, CPU, torch.float64)
+    other = rollout_batch(9, 1, CPU, torch.float64)
+    assert [tuple(a.shape) for a in (x0s, uss, Kss, kss, alphas)] == [
+        (9, 4), (9, 50, 1), (9, 50, 1, 4), (9, 50, 1), (9,)]
+    assert all(torch.equal(a, b) for a, b in zip(again, (x0s, uss, Kss, kss,
+                                                         alphas)))
+    assert not torch.equal(other[2], Kss)
+    assert alphas.tolist() == [0.5 ** (i % 8) for i in range(9)]
+
+
+@pytest.mark.parametrize("tile", [True, False])
+def test_kernel_route_sets_and_restores_the_cuts(tile):
+    """Every entry of the functor (K1's and K4's) is set for the block and
+    restored after it, also when the block raises; other functors'
+    entries stay."""
+    before = dict(FUSED_IP_TILE_MAX_B)
+    with pytest.raises(RuntimeError):
+        with kernel_route("cartpole_friction", tile):
+            for (wrapper, functor), cut in FUSED_IP_TILE_MAX_B.items():
+                if functor == "cartpole_friction":
+                    assert cut == (2 ** 31 if tile else 0)
+                else:
+                    assert cut == before[wrapper, functor]
+            raise RuntimeError
+    assert FUSED_IP_TILE_MAX_B == before
+    seen = routed("acrobot_impact", tile,
+                  lambda key: FUSED_IP_TILE_MAX_B[key])(
+        ("fused_ip", "acrobot_impact"))
+    assert seen == (2 ** 31 if tile else 0)
+    assert FUSED_IP_TILE_MAX_B == before

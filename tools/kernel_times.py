@@ -1,39 +1,65 @@
-"""Time K1 (cartpole) and K2 at (35, 13) on the card, to compare two
-checkouts in one call, and K1's two kernels against each other by width.
+"""Time the port's fused IP and rollout kernels (K1, K1a, K4) and K2 at
+(35, 13) on the card, to compare two checkouts in one call, and each
+two-kernel pair's tile kernel against its per-thread kernel by width.
 
 Run on a machine with one CUDA card:
 
-    python tools/kernel_times.py [--root DIR] [--widths 1600,6400]
+    python tools/kernel_times.py [--root DIR] [--model cartpole|acrobot]
+                                 [--widths 1600,6400]
 
 ``--root`` is the checkout whose ``optimization_dynamics_tpu_torch`` is
-imported (default: the one this script sits in; it needs
-``utils/measure.py``), so the same script times a parent commit unpacked
-into a directory: run parent, change, change, parent and compare within
-the call.
+imported (default: the one this script sits in). The inputs come from
+this script's own checkout (``utils/measure.py``, loaded by its path),
+so a parent commit unpacked into a directory times the same work: run
+parent, change, change, parent and compare within the call.
 
-The inputs come from ``utils/measure.py``, as ``chip_smoke.py`` phases 1
-and 7 take them: float32 K1 on 1,024 cold (a rollout step's width, B x 2
-alphas at B=512, numpy seed 4), 25,600 cold (seed 1) and 25,600 warm
-swing-up-envelope scenarios at the deploy IP options, through the
-wrapper's own choice of kernel; K2 on the 6,400 (35, 13) IFT systems at
-K1n's cold solutions, beside ``torch.linalg.solve`` on them. At each of
-``--widths`` K1 runs cold (seed 1) and warm-started one iterate earlier,
-through the tile kernel and through the per-thread kernel in turn (the
-wrapper's width cut, ``FUSED_IP_TILE_MAX_B``, set for the call). Each
-time is the median of CUDA events over ``--reps`` launches after a
-warm-up. Prints one JSON line with the card's ``nvidia-smi`` name and
-power limit.
+Through the wrapper's own choice of kernel, float32:
+
+* K1 (cartpole) on 1,024 cold swing-up-envelope scenarios (a rollout
+  step's width, B x 2 alphas at B=512, numpy seed 4), 25,600 cold (seed
+  1) and 25,600 warm, at the deploy IP options (``chip_smoke.py`` phase
+  1's inputs);
+* K1a (acrobot) on 512 cold (a rollout step's width, B x 2 alphas at
+  B=256, seed 42), 25,600 cold (the sweep's width, seed 40) and 25,600
+  warm, at the acrobot deploy IP options (phase 9's inputs);
+* K4 (cartpole) at 1,024 scenarios, T=51, every control active
+  (``rollout_batch``, seed 20: phase 5's inputs);
+* K2 on the 6,400 (35, 13) IFT systems at K1n's cold solutions, beside
+  ``torch.linalg.solve`` on them.
+
+At each of ``--widths``, ``--model``'s fused IP solve (K1 or K1a) runs
+cold and warm-started one iterate earlier, through its tile kernel and
+through its per-thread kernel in turn (``routed``: the wrapper's
+width cut ``FUSED_IP_TILE_MAX_B`` set for the call); for cartpole, K4
+too at that width. That is where each cut is measured. Each time is the
+median of CUDA events over ``--reps`` launches after a warm-up. Prints
+one JSON line with the card's ``nvidia-smi`` name and power limit.
 """
 
 import argparse
+import importlib.util
 import json
 import sys
 from pathlib import Path
 
+HERE = Path(__file__).resolve().parents[1]
+
+
+def _measure():
+    """This checkout's ``utils/measure.py``, whatever ``--root`` is."""
+    spec = importlib.util.spec_from_file_location(
+        "odt_measure",
+        HERE / "optimization_dynamics_tpu_torch" / "utils" / "measure.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--root", default=str(HERE))
+    ap.add_argument("--model", choices=("cartpole", "acrobot"),
+                    default="cartpole")
     ap.add_argument("--widths", default="")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
@@ -43,70 +69,103 @@ def main(argv=None) -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: needs a CUDA device")
+    from optimization_dynamics_tpu_torch.examples import acrobot
+    from optimization_dynamics_tpu_torch.examples import cartpole
     from optimization_dynamics_tpu_torch.examples import planar_push as push
-    from optimization_dynamics_tpu_torch.examples.cartpole import (
-        DEPLOY_IP_ACCEL)
+    from optimization_dynamics_tpu_torch.models import cartpole as cp_model
     from optimization_dynamics_tpu_torch.ops.kernels import _build
     from optimization_dynamics_tpu_torch.ops.kernels import fused_ip as k1
     from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
         batched_solve)
+    from optimization_dynamics_tpu_torch.ops.kernels.fused_rollout import (
+        make_fused_rollout)
     from optimization_dynamics_tpu_torch.solver.interior_point import (
         IPOptions, batched_jacobian)
-    from optimization_dynamics_tpu_torch.utils.measure import (
-        cuda_ms, envelope_batch, nvidia_smi, push_batch, rel_residual,
-        warm_batch)
 
+    m = _measure()
     dev, f32 = torch.device("cuda"), torch.float32
     _build.load_library()
-    out = dict(root=str(Path(args.root).resolve()), card=nvidia_smi())
+    out = dict(root=str(Path(args.root).resolve()), card=m.nvidia_smi())
 
-    model, z0s, ths = envelope_batch(1024, 4, dev, f32)
-    kern = k1.make_fused_ip_solver(model, IPOptions(**DEPLOY_IP_ACCEL), dev,
-                                   f32)
-
-    def time_k1(solve, z0, th) -> dict:
+    def time_ip(solve, z0, th) -> dict:
         sol = solve(z0, th)
-        return dict(ms=cuda_ms(lambda: solve(z0, th), reps=args.reps),
+        return dict(ms=m.cuda_ms(lambda: solve(z0, th), reps=args.reps),
                     converged=int(sol.converged.sum()),
                     iterations=int(sol.iterations.sum()),
                     max_iterations=int(sol.iterations.max()))
 
-    def routed(tile: bool):
-        """K1 through one kernel: the width cut set for the call."""
-        cut = _build.FUSED_IP_TILE_MAX_B
+    # (model module's batch, IP options, seeds (1,024-or-512 cold, sweep
+    # cold, warm)) per model
+    models = {
+        "cartpole": (m.envelope_batch, IPOptions(**cartpole.DEPLOY_IP_ACCEL),
+                     (1024, 4), 1, 3),
+        "acrobot": (acrobot.envelope_batch,
+                    IPOptions(**acrobot.DEPLOY_IP_ACCEL,
+                              **acrobot.DEPLOY_KAPPA_SCHEDULE),
+                    (512, 42), 40, 41)}
+    solvers = {}
+    for name, (batch, opts, (nr, sr), sc, sw) in models.items():
+        model, z0s, ths = batch(nr, sr, dev, f32)
+        kern = k1.make_fused_ip_solver(model, opts, dev, f32)
+        solvers[name] = (model, kern, batch, sc, sw)
+        _, z0c, thc = batch(25600, sc, dev, f32)
+        tag = "k1" if name == "cartpole" else "k1a"
+        for case, (z0, th) in {
+                "cold_%d" % nr: (z0s, ths), "cold_25600": (z0c, thc),
+                "warm_25600": m.warm_batch(kern, model, z0c, thc, sw)}.items():
+            out["%s_%s" % (tag, case)] = time_ip(kern, z0, th)
 
-        def solve(z0, th):
-            old = cut["cartpole_friction"]
-            cut["cartpole_friction"] = z0.shape[0] if tile else 0
-            try:
-                return kern(z0, th)
-            finally:
-                cut["cartpole_friction"] = old
-        return solve
+    # K4 at 1,024 scenarios, phase 5's inputs
+    T, NX = cartpole.T, cartpole.NX
+    cpm = cp_model.friction_model()
+    aux = cp_model.CartpoleAux(h=cartpole.H, friction=torch.tensor(
+        [0.35, 0.35], dtype=f32, device=dev))
+    roll = make_fused_rollout(cpm, IPOptions(**cartpole.DEPLOY_IP_ACCEL),
+                              aux, T, None, dev, f32)
 
-    def cold_warm(B: int):
-        _, z0c, thc = envelope_batch(B, 1, dev, f32)
-        return (z0c, thc), warm_batch(kern, model, z0c, thc, 3)
+    def rollout_args(B: int):
+        x0s, uss, Kss, kss, alphas = m.rollout_batch(B, 20, dev, f32)
+        z = torch.zeros_like
+        xss_ref = roll(x0s, torch.zeros((B, T, NX), dtype=f32, device=dev),
+                       uss, z(Kss), z(kss), z(alphas))[0]
+        return x0s, xss_ref, uss, Kss, kss, alphas
 
-    cold, warm = cold_warm(25600)
-    for case, (z0, th) in {"cold_1024": (z0s, ths), "cold_25600": cold,
-                           "warm_25600": warm}.items():
-        out["k1_" + case] = time_k1(kern, z0, th)
+    def time_rollout(fn, a) -> dict:
+        st = fn(*a, return_stats=True)[3]
+        return dict(ms=m.cuda_ms(lambda: fn(*a), reps=args.reps),
+                    step_converged=int((st[..., 1] > 0.5).sum()),
+                    iterations=int(st[..., 0].sum()))
+
+    out["k4_1024"] = time_rollout(roll, rollout_args(1024))
+
+    model, kern, batch, sc, sw = solvers[args.model]
     for w in filter(None, args.widths.split(",")):
-        for case, (z0, th) in zip(("cold_", "warm_"), cold_warm(int(w))):
-            out["k1_" + case + w] = {
-                name: time_k1(routed(name == "tile"), z0, th)
-                for name in ("tile", "thread")}
+        _, z0c, thc = batch(int(w), sc, dev, f32)
+        cases = {"cold_": (z0c, thc),
+                 "warm_": m.warm_batch(kern, model, z0c, thc, sw)}
+        for case, (z0, th) in cases.items():
+            out["%s_%s%s" % ("k1" if args.model == "cartpole" else "k1a",
+                             case, w)] = {
+                route: time_ip(m.routed(model.kernel, route == "tile", kern),
+                               z0, th)
+                for route in ("tile", "thread")}
+        if args.model == "cartpole":
+            a = rollout_args(int(w))
+            out["k4_" + w] = {
+                route: time_rollout(m.routed(cpm.kernel, route == "tile",
+                                             roll), a)
+                for route in ("tile", "thread")}
 
-    pm, pz, pth = push_batch(6400, 30, dev, f32)
+    pm, pz, pth = m.push_batch(6400, 30, dev, f32)
     zs = k1.make_fused_ip_solver(pm, IPOptions(**push.DEPLOY_IP_ACCEL), dev,
                                  f32)(pz, pth).z
     A = batched_jacobian(pm.residual, 0)(zs, pth)
     b = batched_jacobian(pm.residual, 1)(zs, pth)
     out["k2_35_13"] = dict(
-        ms=cuda_ms(lambda: batched_solve(A, b), reps=args.reps),
-        library_ms=cuda_ms(lambda: torch.linalg.solve(A, b), reps=args.reps),
-        rel_res=rel_residual(A, batched_solve(A, b), b))
+        ms=m.cuda_ms(lambda: batched_solve(A, b), reps=args.reps),
+        library_ms=m.cuda_ms(lambda: torch.linalg.solve(A, b),
+                             reps=args.reps),
+        rel_res=m.rel_residual(A, batched_solve(A, b), b))
     print(json.dumps(out), flush=True)
 
 

@@ -6,6 +6,8 @@ Run from the repository root on a machine with one CUDA card:
     python -m tools.torch_measure deploy --dtype f64 --batch 512
     python -m tools.torch_measure deploy --dtype f32 --batch 16 --lanes
     python -m tools.torch_measure profile
+    python -m tools.torch_measure deploy|profile --fused-rollout \
+        --riccati-kernel
     python -m tools.torch_measure deploy --model planar_push
     python -m tools.torch_measure profile --model planar_push
     python -m tools.torch_measure deploy --model acrobot [--dtype f64]
@@ -14,11 +16,13 @@ Run from the repository root on a machine with one CUDA card:
 ``deploy`` runs the example's deploy solve (``examples/cartpole.py`` or
 ``examples/planar_push.py``, ``examples/acrobot.py``, ``main
 --deploy``), which prints its own summary, then prints one JSON line: the
-K1 (K1n for push, K1a for acrobot) and K2 launches of the solve, K1's
-launches by kernel (tile or per-thread) and width, the median converged
-objective and, with ``--lanes``, each lane's flag,
+K1 (K1n for push, K1a for acrobot), K2 and K4 launches of the solve, K1's
+and K4's launches by kernel (tile or per-thread) and width, the mean and
+median converged objective and, with ``--lanes``, each lane's flag,
 objective and inner iterations. The batch defaults to the deploy width:
-512 for cartpole, 256 for push and acrobot.
+512 for cartpole, 256 for push and acrobot. ``--fused-rollout`` and
+``--riccati-kernel`` (cartpole only) turn on K4 and K3, as the
+example's flags of the same names do: the K3+K4 cell.
 
 ``profile`` solves one AL round of five inner iterations at the deploy
 width in float32 three times after a warm-up: unprofiled (wall), under
@@ -47,8 +51,23 @@ def _launch_counters():
     from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
         batched_solve)
     from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import fused_ip
+    from optimization_dynamics_tpu_torch.ops.kernels.fused_rollout import (
+        fused_rollout)
 
-    return fused_ip, batched_solve
+    return fused_ip, batched_solve, fused_rollout
+
+
+def _by_width(widths) -> dict:
+    """``{"tile": {B: launches}, "thread": {...}}`` of a wrapper's
+    ``widths`` Counter."""
+    return {route: {str(b): n for (r, b), n in sorted(widths.items())
+                    if r == route}
+            for route in ("tile", "thread")}
+
+
+def _kernel_flags(args) -> list:
+    return (["--fused-rollout"] * args.fused_rollout
+            + ["--riccati-kernel"] * args.riccati_kernel)
 
 
 def _example(args):
@@ -63,20 +82,25 @@ def _example(args):
 
 def deploy(args) -> None:
     ex, B = _example(args)
-    k1, k2 = _launch_counters()
-    k1.launches = k2.launches = 0
+    k1, k2, k4 = _launch_counters()
+    k1.launches = k2.launches = k4.launches = 0
     k1.widths.clear()
+    k4.widths.clear()
     res = ex.main(["--deploy", "--device", "cuda", "--dtype", args.dtype,
-                   "--batch", str(B)])
+                   "--batch", str(B)] + _kernel_flags(args))
     conv = res.converged.cpu().numpy()
     obj = res.objective.double().cpu().numpy()
     out = dict(model=args.model, dtype=args.dtype, batch=B,
+               fused_rollout=args.fused_rollout,
+               riccati_kernel=args.riccati_kernel,
+               converged=int(conv.sum()),
                launches={"fused_ip": k1.launches,
-                         "batched_solve": k2.launches},
-               fused_ip_widths={
-                   route: {str(b): n for (r, b), n in sorted(k1.widths.items())
-                           if r == route}
-                   for route in ("tile", "thread")},
+                         "batched_solve": k2.launches,
+                         "fused_rollout": k4.launches},
+               fused_ip_widths=_by_width(k1.widths),
+               fused_rollout_widths=_by_width(k4.widths),
+               mean_obj_converged=(float(obj[conv].mean())
+                                   if conv.any() else None),
                median_obj_converged=(float(np.median(obj[conv]))
                                      if conv.any() else None))
     if args.lanes:
@@ -102,18 +126,22 @@ def _busy_seconds(intervals) -> float:
 
 def _kernel_label(name: str) -> str:
     """The port's kernel a profiler event belongs to, by the CUDA kernel's
-    name: K1 is the tile kernel, K1n and K1a the per-thread one with their
-    functors, K2 the per-thread or the group solve."""
-    for key, label in (("PlanarPush", "K1n fused_ip"),
-                       ("AcrobotImpact", "K1a fused_ip"),
-                       ("fused_ip_tile_kernel", "K1 fused_ip (tile)"),
-                       ("fused_ip_kernel", "K1 fused_ip"),
+    name: K1 (cartpole), K1n (push) or K1a (acrobot) by the functor, each
+    the tile or the per-thread kernel; K2 the per-thread or the group
+    solve; K4 the tile or the per-thread rollout."""
+    for key, label in (("fused_ip_tile_kernel", "fused_ip (tile)"),
+                       ("fused_ip_kernel", "fused_ip"),
                        ("batched_solve_group_kernel",
                         "K2 batched_solve (group)"),
                        ("batched_solve_kernel", "K2 batched_solve"),
                        ("riccati", "K3 riccati"),
+                       ("fused_rollout_tile_kernel",
+                        "K4 fused_rollout (tile)"),
                        ("fused_rollout_kernel", "K4 fused_rollout")):
         if key in name:
+            if label.startswith("fused_ip"):
+                label = ("K1n " if "PlanarPush" in name else "K1a "
+                         if "AcrobotImpact" in name else "K1 ") + label
             return label
     return "torch: " + name[:70]
 
@@ -127,8 +155,10 @@ def profile(args) -> None:
 
     ex, B = _example(args)
     dev = torch.device("cuda")
-    prob, x0, us0, opts = ex.build_deploy_problem(dev)
-    opts = dataclasses.replace(opts, max_al_iter=1)
+    prob, x0, us0, opts = ex.build_deploy_problem(
+        dev, **({"fused_rollout": True} if args.fused_rollout else {}))
+    opts = dataclasses.replace(opts, max_al_iter=1,
+                               riccati_kernel=args.riccati_kernel)
     x0s = ex.deploy_x0s(x0, B)
     solve = make_segmented_solver(prob, opts, B, x0.dtype, dev,
                                   max_iter_schedule=[5])
@@ -140,12 +170,13 @@ def profile(args) -> None:
         return res, time.perf_counter() - t0
 
     run()
-    k1, k2 = _launch_counters()
-    k1.launches = k2.launches = 0
+    k1, k2, k4 = _launch_counters()
+    k1.launches = k2.launches = k4.launches = 0
     res, wall = run()
-    print("# unprofiled wall %.3f s, stats %s, launches K1 %d K2 %d, "
+    print("# unprofiled wall %.3f s, stats %s, launches K1 %d K2 %d K4 %d, "
           "converged %d/%d" % (wall, dict(solve.stats), k1.launches,
-                               k2.launches, int(res.converged.sum()), B))
+                               k2.launches, k4.launches,
+                               int(res.converged.sum()), B))
 
     pr = cProfile.Profile()
     pr.enable()
@@ -192,8 +223,13 @@ def main(argv=None) -> None:
         p.add_argument("--model",
                        choices=("cartpole", "planar_push", "acrobot"),
                        default="cartpole")
+        p.add_argument("--fused-rollout", action="store_true")
+        p.add_argument("--riccati-kernel", action="store_true")
     pr.set_defaults(batch=None)
     args = ap.parse_args(argv)
+    if (args.fused_rollout or args.riccati_kernel) and \
+            args.model != "cartpole":
+        ap.error("--fused-rollout and --riccati-kernel are cartpole's")
     if not torch.cuda.is_available():
         raise SystemExit("torch_measure: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
