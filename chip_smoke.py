@@ -67,18 +67,22 @@ kernels/csrc`` and runs twelve phases, each printing one ``#`` line:
    version at the push deploy IP options: 6,400 cold scenarios around the
    nominal pose (the push sweep's width, numpy seed 30), the same 6,400
    warm-started one iterate earlier, and 512 cold ones (a rollout step's
-   width); float64: flags identical on >= 99.5% of lanes, max|dz| <=
-   1e-10 where both converge in the same iteration count; float32:
-   converged count within 1%, max|dq| <= 2e-4; then K2 at (35, 13) on the
-   6,400 IFT systems at K1n's solutions (one 64-thread block a system),
-   relative residual <= 1e-12 in float64 and <= 1e-4 in float32; float32
-   timed beside ``torch.linalg.solve`` on the same systems, with its share
-   of bound;
+   width), each through the wrapper's route, and the 512 cold and 6,400
+   warm through each of K1n's two kernels (group, per-thread), forced by
+   the width cut; float64: flags identical on >= 99.5% of lanes, max|dz|
+   <= 1e-10 where both converge in the same iteration count; float32:
+   converged count within 1%, max|dq| <= 2e-4, timed, with its share of
+   bound; then K2 at (35, 13) on the 6,400 IFT systems at K1n's solutions
+   (one 64-thread block a system), relative residual <= 1e-12 in float64
+   and <= 1e-4 in float32; float32 timed beside ``torch.linalg.solve`` on
+   the same systems, with its share of bound;
 8. the planar-push main path at full width: the push deploy problem
    (float32, T=26) solved by the segmented executor at B=256 for two AL
    rounds of three inner iterations; outputs finite, the objective below
-   the open-loop one on most lanes, K1n and K2 launched; then the
-   four-lane float64 card-against-CPU check of phase 3 on push;
+   the open-loop one on most lanes, K1n's group kernel and K2 launched,
+   every K1n launch on the kernel its width picks (its launches by kernel
+   and width printed); then the four-lane float64 card-against-CPU check
+   of phase 3 on push;
 9. K1a (the fused IP solve at nz=6, acrobot with elbow joint limits)
    against its plain version at the acrobot deploy IP options (one-stage
    kappa schedule): 25,600 cold scenarios over the swing-up envelope
@@ -117,10 +121,15 @@ blocks: thread j builds the Newton matrix's column j with one
 dual-number residual, the tile solves it with a column a thread
 (``csrc/qr_group.cuh``) and runs the line search's candidates in
 parallel; K4's tile runs a scenario's 50 steps, one such solve a step.
-Wider launches (the full sweeps) run one scenario a thread. K2 above 16
-unknowns runs one system on a 64-thread block, a column a thread; at or
-below 16, one thread a system. K1n, K3 and K5 run one scenario (or one
-column, K5) a thread.
+Wider launches (the full sweeps) run one scenario a thread. K1n (planar
+push, nz=35) has two kernels picked the same way: up to its cut (every
+launch of the B=256 deploy) one scenario runs on a group of 64 threads,
+two warps (``csrc/ip_group.cuh``): thread j builds column j, the group
+solves with a column a thread, warp 0 runs the line search's candidates,
+and the scenario's state sits once in shared memory; wider launches run
+one scenario a thread. K2 above 16 unknowns runs one system on a
+64-thread block, a column a thread; at or below 16, one thread a
+system. K3 and K5 run one scenario (or one column, K5) a thread.
 
 Each kernel's ``bound_ms`` is the larger of its bytes (each input read
 once, each output written once) at 3.35 TB/s and its operations at the
@@ -141,7 +150,10 @@ with K1's time at 1,024 cold lanes as ``ms_cold_1024``; ``fused_ip_tile``
 its tile kernel, timed on those 1,024; ``fused_rollout`` and
 ``fused_rollout_tile`` K4's kernels at 1,024 lanes; ``fused_ip_acrobot``
 K1a's per-thread kernel at 25,600 warm lanes, ``fused_ip_acrobot_tile``
-its tile kernel at 512 cold lanes). The last line is ``{"ok": true,
+its tile kernel at 512 cold lanes; ``fused_ip_nz35`` K1n's per-thread
+kernel at 6,400 warm lanes, ``fused_ip_nz35_group`` its group kernel at
+512 cold lanes, with its time at 6,400 warm as ``ms_warm_6400``). The
+last line is ``{"ok": true,
 "device": {...}}``. It needs one card and no network.
 """
 
@@ -789,7 +801,8 @@ def _fused_ip_phase(device, batch, opts, n_sweep: int, seeds,
     one iterate earlier (the sweep's width), 512 cold ones (a rollout
     step's width), each through the wrapper's route; for a functor with a
     tile kernel, the 512 cold and the warm lanes also through each of its
-    two kernels, forced by the width cut (``tile_*``, ``thread_*``); then
+    two kernels, forced by the width cut (``tile_*`` or, for K1n,
+    ``group_*``, and ``thread_*``); then
     K2 on the sweep's IFT systems at the kernel's cold solutions.
     ``batch(B, seed, device, dtype) -> (model, z0s, thetas)``; ``seeds``:
     (cold, warm, 512). ``exact_f64``: every f64 flag and iteration count
@@ -798,7 +811,7 @@ def _fused_ip_phase(device, batch, opts, n_sweep: int, seeds,
     import torch
 
     from optimization_dynamics_tpu_torch.ops.kernels._build import (
-        FUSED_IP_TILE_MAX_B)
+        FUSED_IP_TILE_MAX_B, fused_ip_narrow)
     from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
         batched_solve, batched_solve_plain)
     from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import (
@@ -818,9 +831,10 @@ def _fused_ip_phase(device, batch, opts, n_sweep: int, seeds,
                  "warm_%d" % n_sweep: (z0w, thw), "cold_512": (z0s, ths)}
         runs = [(case, case, kern) for case in cases]
         if ("fused_ip", model.kernel) in FUSED_IP_TILE_MAX_B:
+            narrow = fused_ip_narrow(model.kernel)
             runs += [("%s_%s" % (route, case), case,
-                      routed(model.kernel, route == "tile", kern))
-                     for route in ("tile", "thread")
+                      routed(model.kernel, route == narrow, kern))
+                     for route in (narrow, "thread")
                      for case in ("cold_512", "warm_%d" % n_sweep)]
         res, refs = {}, {}
         for key, case, solve in runs:
@@ -884,8 +898,10 @@ def _fused_ip_phase(device, batch, opts, n_sweep: int, seeds,
 def phase_k1n(device) -> dict:
     """K1n (fused IP at nz=35) and K2 at (35, 13) against their plain
     versions: 6,400 cold and warm lanes (the push sweep's width, B x
-    (T-1) at B=256) and 512 cold ones (a rollout step's width), then K2
-    on the 6,400 IFT systems at K1n's cold solutions."""
+    (T-1) at B=256) and 512 cold ones (a rollout step's width), the 512
+    cold and 6,400 warm also through each of K1n's two kernels (group,
+    per-thread), then K2 on the 6,400 IFT systems at K1n's cold
+    solutions."""
     from optimization_dynamics_tpu_torch.examples import planar_push as ex
     from optimization_dynamics_tpu_torch.solver.interior_point import (
         IPOptions)
@@ -902,6 +918,8 @@ def phase_push(device) -> dict:
     import torch
 
     from optimization_dynamics_tpu_torch.examples import planar_push as ex
+    from optimization_dynamics_tpu_torch.ops.kernels._build import (
+        FUSED_IP_TILE_MAX_B)
     from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
         batched_solve)
     from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import fused_ip
@@ -926,12 +944,18 @@ def phase_push(device) -> dict:
                 "batched_solve_n35_k13": batched_solve}
     for c in counters.values():
         c.launches = 0
+    fused_ip.tile_launches = 0
+    fused_ip.widths.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = solve(x0s, us0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
+    launches["fused_ip_nz35"] -= fused_ip.tile_launches
+    launches["fused_ip_nz35_group"] = fused_ip.tile_launches
+    k1n_widths = {"%s_%d" % kb: n
+                  for kb, n in sorted(fused_ip.widths.items())}
 
     for name in ("xs", "us", "objective", "al_objective",
                  "constraint_violation", "lam", "lamT", "rho"):
@@ -940,8 +964,13 @@ def phase_push(device) -> dict:
     _check(tuple(res.xs.shape) == (B, ex.T, ex.NX), "push xs shape")
     fell = float((res.objective < obj0).float().mean())
     _check(fell >= 0.5, "push objective fell on only %.3f of lanes" % fell)
-    for k, n in launches.items():
-        _check(n > 0, "%s not launched on the push path" % k)
+    for k in ("fused_ip_nz35_group", "batched_solve_n35_k13"):
+        _check(launches[k] > 0, "%s not launched on the push path" % k)
+    # K1n's route: each launch on the kernel its width picks
+    cut = FUSED_IP_TILE_MAX_B["fused_ip", "planar_push"]
+    _check(all((route == "group") == (b <= cut)
+               for route, b in fused_ip.widths),
+           "K1n launches off their route: %s" % k1n_widths)
     conv = res.converged.cpu().numpy()
     obj = res.objective.cpu().numpy()
     out = dict(wall_s=wall, launches=launches, stats=dict(solve.stats),
@@ -950,7 +979,8 @@ def phase_push(device) -> dict:
                mean_initial_objective=float(obj0.mean()),
                objective_fell_frac=fell,
                max_violation=float(res.constraint_violation.max()),
-               mean_inner_iters=float(res.iterations.float().mean()))
+               mean_inner_iters=float(res.iterations.float().mean()),
+               fused_ip_widths=k1n_widths)
 
     # small-input agreement: float64 on the card (K1n + K2) against the
     # same solve on the CPU (plain versions), accelerator IP settings
@@ -1197,7 +1227,8 @@ def main() -> int:
     k4t, k4s = k4["f32"]["all_active_thread"], k4["f32"]["all_active_tile"]
     k4p = k4["f32"]["all_active"]["plain_ms"]
     k2b = k2["f32"]["bound_25600_k8"]
-    k1nt, k2p = k1n["f32"]["warm_6400"], k1n["f32"]["k2_ift_6400"]
+    k1nt, k2p = k1n["f32"]["thread_warm_6400"], k1n["f32"]["k2_ift_6400"]
+    k1ng = k1n["f32"]["group_cold_512"]
     kernels = [
         dict(name="fused_ip", route="cuda", source=src + "fused_ip.cu",
              replaces=tpu + "fused_ip.py:410",
@@ -1251,11 +1282,21 @@ def main() -> int:
              source=src + "fused_ip_push.cu",
              replaces=tpu + "fused_ip.py:442",
              launches=pu["launches"]["fused_ip_nz35"],
-             max_abs_err=max(c["max_dq"] for k, c in k1n["f32"].items()
-                             if k != "k2_ift_6400"),
-             ms=k1nt["ms"], plain_ms=k1nt["plain_ms"],
+             max_abs_err=max(k1n["f32"][c]["max_dq"] for c in
+                             ("thread_cold_512", "thread_warm_6400")),
+             ms=k1nt["ms"], plain_ms=k1n["f32"]["warm_6400"]["plain_ms"],
              bound_ms=k1nt["bound_ms"], bound_by=k1nt["bound_by"],
              library_ms=None),
+        dict(name="fused_ip_nz35_group", route="cuda",
+             source=src + "fused_ip_push.cu",
+             replaces=tpu + "fused_ip.py:442",
+             launches=pu["launches"]["fused_ip_nz35_group"],
+             max_abs_err=max(k1n["f32"][c]["max_dq"] for c in
+                             ("group_cold_512", "group_warm_6400")),
+             ms=k1ng["ms"], plain_ms=k1n["f32"]["cold_512"]["plain_ms"],
+             bound_ms=k1ng["bound_ms"], bound_by=k1ng["bound_by"],
+             library_ms=None,
+             ms_warm_6400=k1n["f32"]["group_warm_6400"]["ms"]),
         dict(name="batched_solve_n35_k13", route="cuda",
              source=src + "batched_solve.cu",
              replaces=tpu + "batched_solve.py:119",

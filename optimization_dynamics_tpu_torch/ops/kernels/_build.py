@@ -39,7 +39,8 @@ import torch
 __all__ = ["library_path", "build", "load_library", "ptxas_report",
            "FUSED_IP_FUNCTORS", "FUSED_IP_TILE_MAX_B",
            "BATCHED_SOLVE_SHAPES", "RICCATI_SHAPES",
-           "FUSED_ROLLOUT_FUNCTORS", "fused_ip_symbol", "fused_ip_tile_symbol",
+           "FUSED_ROLLOUT_FUNCTORS", "fused_ip_symbol", "fused_ip_narrow",
+           "fused_ip_narrow_symbol",
            "batched_solve_symbol", "riccati_symbol", "fused_rollout_symbol",
            "fused_rollout_tile_symbol"]
 
@@ -56,21 +57,26 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 FUSED_IP_FUNCTORS = {"cartpole_friction": (10, 8),  # name -> (nz, ntheta)
                      "planar_push": (35, 13),
                      "acrobot_impact": (6, 6)}
-# (wrapper, functor) pairs that also have a tile kernel (a tile a
-# scenario, csrc/ip_tile.cuh), and the widest batch the wrapper sends it;
-# wider launches run the per-thread kernel. A narrow launch leaves most
-# SMs idle with a thread a scenario; a wide one fills the card, and then
-# the per-thread kernel, with fewer instructions a scenario, is the
-# faster. Each cut is the widest measured width at which the tile was
-# faster (for K1 and K1a on cold and on warm-started scenarios alike), from
-# the width sweeps of tools/kernel_times.py (PERF.md section 6). K1
-# (cartpole): cold the tile loses from 20,480 on, warm from 25,600; the
-# B=512 deploy sends no width between 6,400 and 25,600. K1a (acrobot): it
-# wins up to 204,800 and loses cold at 409,600; the B=256 deploy sends at
-# most 25,600. K4 (cartpole): it wins at 12,288 and loses at 16,384; the
-# deploy sends at most 2,048.
+# (wrapper, functor) pairs that also have a narrow kernel, and the
+# widest batch the wrapper sends it; wider launches run the per-thread
+# kernel. The narrow kernel runs a scenario on several threads: a tile
+# (csrc/ip_tile.cuh) where the NZ + 1 Jacobian columns fit a warp, else a
+# 64-thread group (csrc/ip_group.cuh; ``fused_ip_narrow``). A narrow
+# launch leaves most SMs idle with a thread a scenario; a wide one fills
+# the card, and then the per-thread kernel, with fewer instructions a
+# scenario, is the faster. Each cut is the widest measured width at
+# which the narrow kernel was faster, on cold and on warm-started
+# scenarios alike, from the width sweeps of tools/kernel_times.py
+# (PERF.md section 6). K1 (cartpole): cold the tile loses from 20,480 on,
+# warm from 25,600; the B=512 deploy sends no width between 6,400 and
+# 25,600. K1a (acrobot): it wins up to 204,800 and loses cold at 409,600;
+# the B=256 deploy sends at most 25,600. K1n (planar push): the group
+# kernel wins up to 51,200 (the widest width swept); the B=256 deploy
+# sends at most 6,400. K4 (cartpole): it wins at 12,288 and loses at
+# 16,384; the deploy sends at most 2,048.
 FUSED_IP_TILE_MAX_B = {("fused_ip", "cartpole_friction"): 16384,
                        ("fused_ip", "acrobot_impact"): 204800,
+                       ("fused_ip", "planar_push"): 51200,
                        ("fused_rollout", "cartpole_friction"): 12288}
 FUSED_ROLLOUT_FUNCTORS = {"cartpole_friction": (2, 1)}  # name -> (nq, nu)
 BATCHED_SOLVE_SHAPES = frozenset({(10, 8), (10, 1), (35, 13), (6, 6),
@@ -83,8 +89,16 @@ def fused_ip_symbol(functor: str, dtype: torch.dtype) -> str:
     return "odt_fused_ip_%s_%s" % (functor, SUFFIX[dtype])
 
 
-def fused_ip_tile_symbol(functor: str, dtype: torch.dtype) -> str:
-    return "odt_fused_ip_tile_%s_%s" % (functor, SUFFIX[dtype])
+def fused_ip_narrow(functor: str) -> str:
+    """The narrow kernel of a fused IP functor: ``"tile"`` where its NZ + 1
+    Jacobian columns fit a warp, else ``"group"`` (64 threads)."""
+    return "tile" if FUSED_IP_FUNCTORS[functor][0] + 1 <= 32 else "group"
+
+
+def fused_ip_narrow_symbol(functor: str, dtype: torch.dtype) -> str:
+    """``odt_fused_ip_tile_*`` or ``odt_fused_ip_group_*``."""
+    return "odt_fused_ip_%s_%s_%s" % (fused_ip_narrow(functor), functor,
+                                      SUFFIX[dtype])
 
 
 def fused_rollout_symbol(functor: str, dtype: torch.dtype) -> str:
@@ -108,7 +122,8 @@ _VP, _INT = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     **{fused_ip_symbol(f, dt): [_VP, _VP, _VP, _VP, _INT, _VP, _VP, _VP]
        for f in FUSED_IP_FUNCTORS for dt in SUFFIX},
-    **{fused_ip_tile_symbol(f, dt): [_VP, _VP, _VP, _VP, _INT, _VP, _VP, _VP]
+    **{fused_ip_narrow_symbol(f, dt): [_VP, _VP, _VP, _VP, _INT, _VP, _VP,
+                                       _VP]
        for w, f in FUSED_IP_TILE_MAX_B if w == "fused_ip" for dt in SUFFIX},
     **{fused_rollout_symbol(f, dt): [_VP] * 11 + [_INT, _INT] + [_VP] * 4
        for f in FUSED_ROLLOUT_FUNCTORS for dt in SUFFIX},

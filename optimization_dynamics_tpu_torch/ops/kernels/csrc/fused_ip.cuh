@@ -8,7 +8,11 @@
 // * fused_ip_tile_kernel (ODT_FUSED_IP_TILE): one tile of
 //   ip_tile_width<M>() threads a scenario (16 for cartpole, 8 for the
 //   acrobot), 64-thread blocks; the solve is ip_solve_tile (ip_tile.cuh),
-//   which K4's tile kernel shares. It takes any functor with NZ + 1 <= 32.
+//   which K4's tile kernel shares. It takes any functor with NZ + 1 <= 32;
+// * fused_ip_group_kernel (ODT_FUSED_IP_GROUP): one group of
+//   IP_GROUP_THREADS = 64 threads a scenario, for functors whose NZ + 1
+//   columns do not fit a warp (K1n, planar push); the solve is
+//   ip_solve_group (ip_group.cuh).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -16,6 +20,7 @@
 #include <cstdint>
 
 #include "ip_body.cuh"
+#include "ip_group.cuh"
 #include "ip_tile.cuh"
 
 namespace odt {
@@ -117,6 +122,58 @@ int launch_fused_ip_tile(const void* z0s, const void* ths, void* zs,
   return static_cast<int>(cudaGetLastError());
 }
 
+// One group of IP_GROUP_THREADS threads a scenario, IP_GROUP_BLOCK /
+// IP_GROUP_THREADS groups a block, each syncing on its own named barrier.
+// A group whose scenario is past B returns as a whole, before any sync.
+template <typename T, typename M>
+__global__ void __launch_bounds__(IP_GROUP_BLOCK, IP_GROUP_MIN_BLOCKS)
+fused_ip_group_kernel(const T* __restrict__ z0s, const T* __restrict__ ths,
+                      T* __restrict__ zs_out, T* __restrict__ stats, int B,
+                      M model, IPParams<T> p) {
+  constexpr int NZ = M::NZ;
+  constexpr int NTH = M::NTH;
+  constexpr int GROUPS = ip_groups_per_block();
+  __shared__ IPGroupState<T, M> sh[GROUPS];
+  const int gi = threadIdx.x / IP_GROUP_THREADS;
+  const int64_t lane = (int64_t)blockIdx.x * GROUPS + gi;
+  if (lane >= B) return;
+
+  const IPGroup g(gi);
+  IPGroupState<T, M>& s = sh[gi];
+  const int rank = static_cast<int>(g.thread_rank());
+  for (int i = rank; i < NZ; i += IP_GROUP_THREADS)
+    s.z[i] = z0s[lane * NZ + i];
+  for (int i = rank; i < NTH; i += IP_GROUP_THREADS)
+    s.th[i] = ths[lane * NTH + i];
+  g.sync();
+
+  T st[4];
+  ip_solve_group<T, M>(g, model, p, s, st);
+
+  for (int i = rank; i < NZ; i += IP_GROUP_THREADS)
+    zs_out[lane * NZ + i] = s.z[i];
+  if (rank == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) stats[lane * 4 + i] = st[i];
+  }
+}
+
+template <typename T, typename M>
+int launch_fused_ip_group(const void* z0s, const void* ths, void* zs,
+                          void* stats, int B, const double* model_params,
+                          const double* ip, void* stream) {
+  if (B <= 0) return 0;
+  const IPParams<T> p = make_ip_params<T>(ip);
+  const M model(model_params);
+  constexpr int groups = ip_groups_per_block();
+  const int blocks = (B + groups - 1) / groups;
+  fused_ip_group_kernel<T, M>
+      <<<blocks, IP_GROUP_BLOCK, 0, (cudaStream_t)stream>>>(
+          static_cast<const T*>(z0s), static_cast<const T*>(ths),
+          static_cast<T*>(zs), static_cast<T*>(stats), B, model, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace odt
 
 #define ODT_FUSED_IP(NAME, FUNCTOR, SUFFIX, T)                               \
@@ -133,5 +190,13 @@ int launch_fused_ip_tile(const void* z0s, const void* ths, void* zs,
       const void* z0s, const void* ths, void* zs, void* stats, int B,         \
       const double* model_params, const double* ip, void* stream) {           \
     return odt::launch_fused_ip_tile<T, odt::FUNCTOR<T>>(                     \
+        z0s, ths, zs, stats, B, model_params, ip, stream);                    \
+  }
+
+#define ODT_FUSED_IP_GROUP(NAME, FUNCTOR, SUFFIX, T)                         \
+  int odt_fused_ip_group_##NAME##_##SUFFIX(                                   \
+      const void* z0s, const void* ths, void* zs, void* stats, int B,         \
+      const double* model_params, const double* ip, void* stream) {           \
+    return odt::launch_fused_ip_group<T, odt::FUNCTOR<T>>(                    \
         z0s, ths, zs, stats, B, model_params, ip, stream);                    \
   }

@@ -46,8 +46,20 @@ does inside the Pallas body. K1a (acrobot, nz=6) has both kernels too:
 its tile is 8 threads (the smallest power of two that holds NZ + 1, as
 16 is for cartpole), eight tiles a block. With half cartpole's redundant
 spine a scenario, its tile wins up to 204,800 scenarios, so it runs
-every launch of the B=256 deploy, the 25,600-wide sweeps too. K1n
-(planar push, nz=35) runs the per-thread kernel at every width.
+every launch of the B=256 deploy, the 25,600-wide sweeps too.
+
+K1n (planar push, nz=35) needs 36 threads for its columns and the
+right-hand side, more than a warp's tile, and a thread cannot hold the
+scenario's state beside its column and a dual-number residual. So its
+narrow kernel runs a scenario on a group of 64 threads, two warps
+(``csrc/ip_group.cuh``, two groups a 128-thread block): thread j < 35
+builds column j, thread 35 the right-hand side, the group solves with
+``qr_solve_group<35, 1>`` (the QR K2 runs at (35, 13)), and warp 0 runs
+the line search's candidates; z, theta, the residual, the Newton step,
+kappa and the exit flag sit once in shared memory, the scalar decisions
+are made by every thread of warp 0 alike, and a group sync hands them
+to warp 1. The wrapper sends it every launch up to its cut (every
+launch of the B=256 deploy); wider ones run the per-thread kernel.
 
 The plain version is the port of ``make_solver_batched`` (geometric
 schedule) with its Newton solve pinned to K2's plain QR. The wrapper
@@ -67,8 +79,9 @@ from optimization_dynamics_tpu_torch.ops.kernels._build import (
     FUSED_IP_FUNCTORS,
     FUSED_IP_TILE_MAX_B,
     SUFFIX,
+    fused_ip_narrow,
+    fused_ip_narrow_symbol,
     fused_ip_symbol,
-    fused_ip_tile_symbol,
     load_library,
 )
 from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
@@ -103,11 +116,12 @@ def fused_ip(z0s: torch.Tensor, thetas: torch.Tensor, kernel: str,
              model_params: np.ndarray, ip_params: np.ndarray,
              plain: Callable) -> IPSolution:
     """The K1 wrapper. CPU tensors run ``plain``; CUDA tensors launch the
-    kernel of the device functor ``kernel`` (float32 or float64): the tile
-    kernel up to ``FUSED_IP_TILE_MAX_B["fused_ip", kernel]`` scenarios
-    (counted in ``fused_ip.tile_launches`` too), else the per-thread
-    kernel. ``fused_ip.widths`` counts the launches by (kernel, B), with
-    kernel ``"tile"`` or ``"thread"``."""
+    kernel of the device functor ``kernel`` (float32 or float64): its
+    narrow kernel (the tile kernel, or for K1n the group kernel) up to
+    ``FUSED_IP_TILE_MAX_B["fused_ip", kernel]`` scenarios (counted in
+    ``fused_ip.tile_launches`` too), else the per-thread kernel.
+    ``fused_ip.widths`` counts the launches by (kernel, B), with kernel
+    ``"tile"``, ``"group"`` or ``"thread"``."""
     if z0s.device.type == "cpu" and thetas.device.type == "cpu":
         return plain(z0s, thetas)
     if z0s.device.type != "cuda" or thetas.device != z0s.device:
@@ -129,7 +143,7 @@ def fused_ip(z0s: torch.Tensor, thetas: torch.Tensor, kernel: str,
     if B >= 2 ** 31:
         raise ValueError("fused_ip: batch too large for int32")
     tile = B <= FUSED_IP_TILE_MAX_B.get(("fused_ip", kernel), 0)
-    symbol = fused_ip_tile_symbol if tile else fused_ip_symbol
+    symbol = fused_ip_narrow_symbol if tile else fused_ip_symbol
     fn = getattr(load_library(), symbol(kernel, z0s.dtype))
     z0s = z0s.contiguous()
     thetas = thetas.contiguous()
@@ -146,7 +160,8 @@ def fused_ip(z0s: torch.Tensor, thetas: torch.Tensor, kernel: str,
                                "%d" % err)
         fused_ip.launches += 1
         fused_ip.tile_launches += tile
-        fused_ip.widths["tile" if tile else "thread", B] += 1
+        fused_ip.widths[fused_ip_narrow(kernel) if tile else "thread",
+                        B] += 1
     return IPSolution(z=zs, iterations=stats[:, 0].to(torch.int32),
                       converged=stats[:, 1] > 0.5, r_vio=stats[:, 2],
                       kappa_vio=stats[:, 3])

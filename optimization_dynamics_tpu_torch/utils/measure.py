@@ -8,8 +8,8 @@ inputs, so two checkouts that both have this module time the same work:
   prints them;
 * ``cuda_ms``: the median of CUDA-event times of a call;
 * ``kernel_route``, ``routed``: every K1 and K4 launch of a functor sent
-  to its tile kernel or to its per-thread kernel, for a block of code or
-  a call;
+  to its narrow kernel (tile, or K1n's group) or to its per-thread
+  kernel, for a block of code or a call;
 * ``rel_residual``: the relative residual of batched solves;
 * ``envelope_batch``, ``warm_batch``: cold cartpole-friction IP solves
   over the swing-up envelope, and their warm starts one iterate earlier
@@ -60,7 +60,8 @@ def cuda_ms(fn, reps: int = 5) -> float:
 @contextlib.contextmanager
 def kernel_route(functor: str, tile: bool):
     """Within the block, every K1 and K4 launch of ``functor`` runs its
-    tile kernel (``tile``) or its per-thread kernel, whatever its width:
+    narrow kernel (``tile``: the tile kernel, or K1n's group kernel) or its
+    per-thread kernel, whatever its width:
     the wrappers' width cuts ``FUSED_IP_TILE_MAX_B`` set for the block."""
     from optimization_dynamics_tpu_torch.ops.kernels._build import (
         FUSED_IP_TILE_MAX_B)

@@ -3,10 +3,10 @@
 The CUDA sources compile only on a machine with the card, so these tests
 check what can be checked without ``nvcc``: that every C entry point the
 wrappers call (``_build.SIGNATURES``) is instantiated by exactly one line
-of ``csrc/*.cu``, that the functors given the tile kernels (K1's, K4's)
-fit a tile, that the library's name follows its sources, that
-``ptxas_report`` reads a ``-Xptxas -v`` log, and that the K1 and K4
-wrappers run their plain versions on CPU tensors.
+of ``csrc/*.cu``, that the functors given the narrow kernels (K1's and
+K4's tiles, K1n's 64-thread group) fit them, that the library's name
+follows its sources, that ``ptxas_report`` reads a ``-Xptxas -v`` log,
+and that the K1 and K4 wrappers run their plain versions on CPU tensors.
 """
 
 import re
@@ -24,6 +24,8 @@ def _instantiated_symbols():
         "ODT_FUSED_IP": lambda a: "odt_fused_ip_%s_%s" % (a[0], a[2]),
         "ODT_FUSED_IP_TILE": lambda a: "odt_fused_ip_tile_%s_%s" % (a[0],
                                                                      a[2]),
+        "ODT_FUSED_IP_GROUP": lambda a: "odt_fused_ip_group_%s_%s" % (a[0],
+                                                                       a[2]),
         "ODT_FUSED_ROLLOUT": lambda a: "odt_fused_rollout_%s_%s" % (a[0],
                                                                      a[2]),
         "ODT_FUSED_ROLLOUT_TILE": lambda a: "odt_fused_rollout_tile_%s_%s" % (
@@ -49,26 +51,52 @@ def test_every_entry_point_is_instantiated_once():
 
 
 def test_tile_functors_fit_a_tile():
-    """A functor's tile (csrc/ip_tile.cuh, ip_tile_width) is the smallest
-    power of two that holds its NZ Jacobian columns and the right-hand
-    side: at most a warp, whole tiles to a block of IP_TILE_BLOCK
-    threads. Every (wrapper, functor) entry of FUSED_IP_TILE_MAX_B has its
-    tile kernel's entry points: K1's, or K4's for a functor with a fused
-    rollout."""
+    """A functor's narrow kernel runs a scenario on several threads. Its
+    tile (csrc/ip_tile.cuh, ip_tile_width) is the smallest power of two
+    that holds its NZ Jacobian columns and the right-hand side: at most a
+    warp, whole tiles to a block of IP_TILE_BLOCK threads. A functor
+    whose NZ + 1 columns do not fit a warp (planar push) runs on a group
+    of IP_GROUP_THREADS = 64 threads instead (csrc/ip_group.cuh), whole
+    groups to a block of IP_GROUP_BLOCK threads, one named barrier each.
+    Every (wrapper, functor) entry of FUSED_IP_TILE_MAX_B has its narrow
+    kernel's float32 and float64 entry points: K1's tile or group kernel,
+    or K4's tile kernel for a functor with a fused rollout."""
     text = (_build.CSRC / "ip_tile.cuh").read_text()
     block = int(re.search(r"constexpr int IP_TILE_BLOCK = (\d+);", text)[1])
     assert re.search(r"while \(w < M::NZ \+ 1\) w \*= 2;", text)
-    symbol = {"fused_ip": _build.fused_ip_tile_symbol,
+    gtext = (_build.CSRC / "ip_group.cuh").read_text()
+    group = int(re.search(r"constexpr int IP_GROUP_THREADS = (\d+);",
+                          gtext)[1])
+    gblock = int(re.search(r"constexpr int IP_GROUP_BLOCK = (\d+);",
+                           gtext)[1])
+    assert group == 64 and gblock % group == 0 and gblock // group <= 15
+    symbol = {"fused_ip": _build.fused_ip_narrow_symbol,
               "fused_rollout": _build.fused_rollout_tile_symbol}
+    instantiated = _instantiated_symbols()
     widths = {}
     for (wrapper, functor), max_b in _build.FUSED_IP_TILE_MAX_B.items():
         nz, _ = _build.FUSED_IP_FUNCTORS[functor]
         width = 1 << nz.bit_length()     # smallest power of two >= nz + 1
-        assert nz + 1 <= width <= 32 and block % width == 0 and max_b > 0
+        assert max_b > 0
+        if width <= 32:
+            assert _build.fused_ip_narrow(functor) == "tile"
+            assert nz + 1 <= width and block % width == 0
+        else:
+            assert _build.fused_ip_narrow(functor) == "group"
+            assert wrapper == "fused_ip" and nz + 1 <= group
+            width = group
         widths[functor] = width
         for dt in (torch.float32, torch.float64):
-            assert symbol[wrapper](functor, dt) in _build.SIGNATURES
-    assert widths == {"cartpole_friction": 16, "acrobot_impact": 8}
+            name = symbol[wrapper](functor, dt)
+            assert name in _build.SIGNATURES
+            assert instantiated.count(name) == 1
+    assert widths == {"cartpole_friction": 16, "acrobot_impact": 8,
+                      "planar_push": 64}
+    assert _build.fused_ip_narrow_symbol("planar_push", torch.float32) == \
+        "odt_fused_ip_group_planar_push_f32"
+    assert _build.fused_ip_narrow_symbol("cartpole_friction",
+                                         torch.float64) == \
+        "odt_fused_ip_tile_cartpole_friction_f64"
     assert {("fused_rollout", f) for f in _build.FUSED_ROLLOUT_FUNCTORS} \
         <= set(_build.FUSED_IP_TILE_MAX_B)
 
@@ -110,34 +138,58 @@ def test_ptxas_report_reads_registers_and_shared_memory(tmp_path,
         registers=110, smem=2112, stack=32, spill_stores=8, spill_loads=4)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_fused_ip_wrapper_runs_plain_on_cpu_at_any_width(dtype):
-    """On CPU tensors the K1 wrapper runs its plain version whatever the
-    width, and counts no launch of either kernel."""
-    from optimization_dynamics_tpu_torch.examples.cartpole import (
-        DEPLOY_IP_ACCEL)
-    from optimization_dynamics_tpu_torch.models import cartpole
-    from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import (
-        fused_ip, make_fused_ip_plain, make_fused_ip_solver)
+def _cpu_ip_batch(model_name, dtype):
+    """(model, IP options, z0s, thetas) of three small CPU scenarios."""
     from optimization_dynamics_tpu_torch.solver.interior_point import (
         IPOptions)
 
+    if model_name == "planar_push":
+        from optimization_dynamics_tpu_torch.examples.planar_push import (
+            DEPLOY_IP_ACCEL)
+        from optimization_dynamics_tpu_torch.utils.measure import push_batch
+
+        model, z0s, ths = push_batch(3, 5, torch.device("cpu"), dtype)
+        return model, IPOptions(**DEPLOY_IP_ACCEL), z0s, ths
+    from optimization_dynamics_tpu_torch.examples.cartpole import (
+        DEPLOY_IP_ACCEL)
+    from optimization_dynamics_tpu_torch.models import cartpole
+
     model = cartpole.friction_model()
-    opts = IPOptions(**DEPLOY_IP_ACCEL)
-    cpu = torch.device("cpu")
     q1 = torch.tensor([[0.1, 3.0], [-0.2, 0.5], [0.0, -1.0]], dtype=dtype)
     aux = cartpole.CartpoleAux(h=0.05, friction=torch.tensor(
         [0.35, 0.35], dtype=dtype))
     z0s = model.init_z(q1)
     ths = model.theta_fn(q1 - 0.01, q1, torch.ones((3, 1), dtype=dtype), aux)
-    launches, tiles = fused_ip.launches, fused_ip.tile_launches
-    widths = dict(fused_ip.widths)
-    got = make_fused_ip_solver(model, opts, cpu, dtype)(z0s, ths)
-    ref = make_fused_ip_plain(model, opts, cpu, dtype)(z0s, ths)
-    assert (fused_ip.launches, fused_ip.tile_launches) == (launches, tiles)
-    assert dict(fused_ip.widths) == widths
-    assert torch.equal(got.z, ref.z)
-    assert torch.equal(got.iterations, ref.iterations)
+    return model, IPOptions(**DEPLOY_IP_ACCEL), z0s, ths
+
+
+@pytest.mark.parametrize("model_name", ["cartpole_friction", "planar_push"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_ip_wrapper_runs_plain_on_cpu_at_any_width(dtype, model_name,
+                                                         monkeypatch):
+    """On CPU tensors the K1 wrapper runs its plain version whatever the
+    width, below, at and above the functor's cut (set to 2 here: cartpole's
+    tile kernel, push's group kernel), and counts no launch of any
+    kernel."""
+    from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import (
+        fused_ip, make_fused_ip_plain, make_fused_ip_solver)
+
+    monkeypatch.setitem(_build.FUSED_IP_TILE_MAX_B, ("fused_ip", model_name),
+                        2)
+    model, opts, z0s, ths = _cpu_ip_batch(model_name, dtype)
+    assert model.kernel == model_name
+    cpu = torch.device("cpu")
+    for B in (1, 2, 3):
+        launches, tiles = fused_ip.launches, fused_ip.tile_launches
+        widths = dict(fused_ip.widths)
+        got = make_fused_ip_solver(model, opts, cpu, dtype)(z0s[:B],
+                                                            ths[:B])
+        ref = make_fused_ip_plain(model, opts, cpu, dtype)(z0s[:B], ths[:B])
+        assert (fused_ip.launches, fused_ip.tile_launches) == (launches,
+                                                               tiles)
+        assert dict(fused_ip.widths) == widths
+        assert torch.equal(got.z, ref.z)
+        assert torch.equal(got.iterations, ref.iterations)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -35,7 +35,12 @@ per-thread kernel as K4, each forced by the cut, at 1,024 scenarios and
 T=51, and on ragged batches with every step's flags and iteration counts
 identical; K2 at (35, 13) (a 64-thread block a system) with float64
 relative residual <= 1e-12 on ragged batches and KKT-like saddle
-systems.
+systems. K1n's group kernel (a 64-thread group a scenario) and its
+per-thread kernel, each forced by the wrapper's width cut, as K1n at
+the main path's widths (512 cold, 6,400 warm), on ragged batches, with
+line searches that pick past the first candidate (one and two chunks of
+warp 0), and against each other: the two run the same arithmetic in the
+same order, so they agree bit for bit.
 """
 
 import numpy as np
@@ -77,8 +82,11 @@ from optimization_dynamics_tpu_torch.ops.kernels.riccati import (
 )
 from optimization_dynamics_tpu_torch.solver.interior_point import IPOptions
 from optimization_dynamics_tpu_torch.utils.measure import (
+    push_batch,
     rel_residual,
     rollout_batch,
+    routed,
+    warm_batch,
 )
 
 pytestmark = pytest.mark.cuda
@@ -439,8 +447,10 @@ def test_fused_ip_push_kernel_matches_plain(card, dtype, start):
         assert dq.max() <= 2e-4
 
 
-def test_fused_ip_push_kernel_ragged_batch(card):
-    """Batches that are not a multiple of the 32-thread block."""
+def test_fused_ip_push_kernel_ragged_batch(card, monkeypatch):
+    """K1n's per-thread kernel, forced by the wrapper's width cut, on
+    batches that are not a multiple of its 32-thread block."""
+    monkeypatch.setitem(FUSED_IP_TILE_MAX_B, ("fused_ip", "planar_push"), 0)
     for B in (1, 5, 33):
         model, z0s, ths = _push(B, 13, card, torch.float64)
         sk = make_fused_ip_solver(model, PUSH_OPTS, card, torch.float64)(
@@ -586,6 +596,138 @@ def test_push_wrappers_raise_on_wrong_functor_or_shape(card):
     with pytest.raises(ValueError):
         batched_solve(torch.zeros((4, 35, 35), device=card),
                       torch.zeros((4, 35, 12), device=card))
+
+
+def _push_cases(dtype, card):
+    """(name, z0s, thetas) of K1n's main-path widths: 512 cold lanes (a
+    rollout step, B x 2 alphas at B=256) and 6,400 warm-started ones (the
+    sweep, B x (T-1), warm-started one iterate earlier), as chip_smoke.py
+    phase 7 makes them."""
+    model, z0c, thc = push_batch(6400, 30, card, dtype)
+    kern = make_fused_ip_solver(model, PUSH_OPTS, card, dtype)
+    z0w, thw = warm_batch(kern, model, z0c, thc, 31)
+    _, z0s, ths = push_batch(512, 32, card, dtype)
+    return model, {"cold_512": (z0s, ths), "warm_6400": (z0w, thw)}
+
+
+def _assert_push_agrees(sk, sp, dtype):
+    """K1n against its plain version, phase 7's gate: float64 flags equal
+    on >= 99.5% of lanes and z within 1e-10 where both converge in the same
+    iteration count; float32 converged counts within 1% and max|dq| <=
+    2e-4 where both converge."""
+    ck, cp = sk.converged.cpu().numpy(), sp.converged.cpu().numpy()
+    both = ck & cp
+    assert bool(torch.isfinite(sk.z).all())
+    assert both.sum() > 0.9 * len(ck)
+    if dtype == torch.float64:
+        assert (ck == cp).mean() >= 0.995
+        same = both & (sk.iterations == sp.iterations).cpu().numpy()
+        assert same.sum() > 0.9 * len(ck)
+        assert (sk.z - sp.z).abs().cpu().numpy()[same].max() <= 1e-10
+    else:
+        assert abs(int(ck.sum()) - int(cp.sum())) <= 0.01 * len(ck)
+        assert (sk.z - sp.z)[:, :5].abs().cpu().numpy()[both].max() <= 2e-4
+
+
+@pytest.mark.parametrize("case", ["cold_512", "warm_6400"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fused_ip_push_group_kernel_matches_plain(card, dtype, case):
+    """K1n's group kernel (a 64-thread group a scenario) at the main
+    path's widths, through the wrapper's route."""
+    model, cases = _push_cases(dtype, card)
+    z0s, ths = cases[case]
+    tiles, widths = fused_ip.tile_launches, dict(fused_ip.widths)
+    sk = make_fused_ip_solver(model, PUSH_OPTS, card, dtype)(z0s, ths)
+    assert fused_ip.tile_launches == tiles + 1
+    B = z0s.shape[0]
+    assert fused_ip.widths["group", B] == widths.get(("group", B), 0) + 1
+    _assert_push_agrees(sk, make_fused_ip_plain(model, PUSH_OPTS, card,
+                                                dtype)(z0s, ths), dtype)
+
+
+@pytest.mark.parametrize("case", ["cold_512", "warm_6400"])
+def test_fused_ip_push_thread_kernel_matches_plain(card, monkeypatch, case):
+    """K1n's per-thread kernel, forced by the wrapper's width cut, at the
+    main path's widths in float64."""
+    monkeypatch.setitem(FUSED_IP_TILE_MAX_B, ("fused_ip", "planar_push"), 0)
+    model, cases = _push_cases(torch.float64, card)
+    z0s, ths = cases[case]
+    tiles = fused_ip.tile_launches
+    sk = make_fused_ip_solver(model, PUSH_OPTS, card, torch.float64)(z0s,
+                                                                     ths)
+    assert fused_ip.tile_launches == tiles
+    _assert_push_agrees(sk, make_fused_ip_plain(
+        model, PUSH_OPTS, card, torch.float64)(z0s, ths), torch.float64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fused_ip_push_group_kernel_matches_thread_kernel(card, dtype):
+    """K1n's group and per-thread kernels on the 512 cold and 6,400 warm
+    lanes: z, iteration counts and flags equal bit for bit."""
+    model, cases = _push_cases(dtype, card)
+    kern = make_fused_ip_solver(model, PUSH_OPTS, card, dtype)
+    for z0s, ths in cases.values():
+        sg = routed("planar_push", True, kern)(z0s, ths)
+        st = routed("planar_push", False, kern)(z0s, ths)
+        assert torch.equal(sg.z, st.z)
+        assert torch.equal(sg.iterations, st.iterations)
+        assert torch.equal(sg.converged, st.converged)
+
+
+@pytest.mark.parametrize("B", [1, 2, 3, 65, 129])
+def test_fused_ip_push_group_kernel_ragged_batch(card, B):
+    """K1n's group kernel on batches that cut its blocks: every lane
+    solved, float64 flags as the plain version's."""
+    model, z0s, ths = push_batch(B, 33, card, torch.float64)
+    tiles = fused_ip.tile_launches
+    sk = make_fused_ip_solver(model, PUSH_OPTS, card, torch.float64)(z0s,
+                                                                     ths)
+    assert fused_ip.tile_launches == tiles + 1
+    assert tuple(sk.z.shape) == (B, 35)
+    assert tuple(sk.iterations.shape) == (B,)
+    assert bool(torch.isfinite(sk.z).all())
+    sp = make_fused_ip_plain(model, PUSH_OPTS, card, torch.float64)(z0s, ths)
+    np.testing.assert_array_equal(sk.converged.cpu().numpy(),
+                                  sp.converged.cpu().numpy())
+    assert bool(sk.converged.all())
+
+
+@pytest.mark.parametrize("max_ls", [8, 40])
+def test_fused_ip_push_group_kernel_line_search_past_first(card, max_ls):
+    """Scenarios whose line search picks past the first candidate (push
+    scenarios with the controls moved by N(0, 1)): the plain version's
+    iteration counts with ``max_ls`` candidates differ from those with one
+    candidate on some lanes (a pick at j > 0). The
+    group kernel gives the plain version's float64 flags there, with 8
+    candidates (one chunk of warp 0) and with 40 (two chunks)."""
+    model, z0s, ths = push_batch(512, 34, card, torch.float64)
+    ths = ths.clone()
+    ths[:, list(model.th_u)] += torch.as_tensor(
+        np.random.default_rng(35).standard_normal((512, 2)), device=card)
+    one = IPOptions(**{**push_ex.DEPLOY_IP_ACCEL, "max_ls": 1})
+    opts = IPOptions(**{**push_ex.DEPLOY_IP_ACCEL, "max_ls": max_ls})
+    sp = make_fused_ip_plain(model, opts, card, torch.float64)(z0s, ths)
+    sp1 = make_fused_ip_plain(model, one, card, torch.float64)(z0s, ths)
+    assert bool((sp.iterations != sp1.iterations).any())
+    sk = make_fused_ip_solver(model, opts, card, torch.float64)(z0s, ths)
+    _assert_push_agrees(sk, sp, torch.float64)
+
+
+def test_fused_ip_push_kernels_route_by_width(card):
+    """Up to FUSED_IP_TILE_MAX_B["fused_ip", "planar_push"] scenarios the
+    group kernel runs, above it the per-thread kernel; both give the plain
+    version's float64 flags on >= 99.5% of lanes."""
+    limit = FUSED_IP_TILE_MAX_B["fused_ip", "planar_push"]
+    model, z0s, ths = push_batch(limit + 1, 36, card, torch.float64)
+    solve = make_fused_ip_solver(model, PUSH_OPTS, card, torch.float64)
+    plain = make_fused_ip_plain(model, PUSH_OPTS, card, torch.float64)
+    for B, route in ((limit, "group"), (limit + 1, "thread")):
+        n = fused_ip.widths[route, B]
+        sk = solve(z0s[:B], ths[:B])
+        assert fused_ip.widths[route, B] == n + 1
+        ck = sk.converged.cpu().numpy()
+        cp = plain(z0s[:B], ths[:B]).converged.cpu().numpy()
+        assert (ck == cp).mean() >= 0.995
 
 
 ACROBOT_OPTS = IPOptions(**acrobot_ex.DEPLOY_IP_ACCEL,

@@ -1,10 +1,12 @@
-"""Time the port's fused IP and rollout kernels (K1, K1a, K4) and K2 at
-(35, 13) on the card, to compare two checkouts in one call, and each
-two-kernel pair's tile kernel against its per-thread kernel by width.
+"""Time the port's fused IP and rollout kernels (K1, K1a, K1n, K4) and K2
+at (35, 13) on the card, to compare two checkouts in one call, and each
+two-kernel pair's narrow kernel (tile or group) against its per-thread
+kernel by width.
 
 Run on a machine with one CUDA card:
 
-    python tools/kernel_times.py [--root DIR] [--model cartpole|acrobot]
+    python tools/kernel_times.py [--root DIR]
+                                 [--model cartpole|acrobot|planar_push]
                                  [--widths 1600,6400]
 
 ``--root`` is the checkout whose ``optimization_dynamics_tpu_torch`` is
@@ -22,16 +24,20 @@ Through the wrapper's own choice of kernel, float32:
 * K1a (acrobot) on 512 cold (a rollout step's width, B x 2 alphas at
   B=256, seed 42), 25,600 cold (the sweep's width, seed 40) and 25,600
   warm, at the acrobot deploy IP options (phase 9's inputs);
+* K1n (planar push) on 512 cold (a rollout step's width, B x 2 alphas
+  at B=256, seed 32), 6,400 cold (the sweep's width B x (T-1), seed 30)
+  and 6,400 warm, at the push deploy IP options (phase 7's inputs);
 * K4 (cartpole) at 1,024 scenarios, T=51, every control active
   (``rollout_batch``, seed 20: phase 5's inputs);
 * K2 on the 6,400 (35, 13) IFT systems at K1n's cold solutions, beside
   ``torch.linalg.solve`` on them.
 
-At each of ``--widths``, ``--model``'s fused IP solve (K1 or K1a) runs
-cold and warm-started one iterate earlier, through its tile kernel and
-through its per-thread kernel in turn (``routed``: the wrapper's
-width cut ``FUSED_IP_TILE_MAX_B`` set for the call); for cartpole, K4
-too at that width. That is where each cut is measured. Each time is the
+At each of ``--widths``, ``--model``'s fused IP solve (K1, K1a or K1n)
+runs cold and warm-started one iterate earlier, through its narrow
+kernel (``"tile"``; K1n's group kernel) and through its per-thread
+kernel in turn (``routed``: the wrapper's width cut
+``FUSED_IP_TILE_MAX_B`` set for the call); for cartpole, K4 too at that
+width. That is where each cut is measured. Each time is the
 median of CUDA events over ``--reps`` launches after a warm-up. Prints
 one JSON line with the card's ``nvidia-smi`` name and power limit.
 """
@@ -58,7 +64,7 @@ def _measure():
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(HERE))
-    ap.add_argument("--model", choices=("cartpole", "acrobot"),
+    ap.add_argument("--model", choices=("cartpole", "acrobot", "planar_push"),
                     default="cartpole")
     ap.add_argument("--widths", default="")
     ap.add_argument("--reps", type=int, default=20)
@@ -94,25 +100,27 @@ def main(argv=None) -> None:
                     iterations=int(sol.iterations.sum()),
                     max_iterations=int(sol.iterations.max()))
 
-    # (model module's batch, IP options, seeds (1,024-or-512 cold, sweep
-    # cold, warm)) per model
+    # (batch, IP options, (rollout-step width, seed), sweep width, seeds
+    # (sweep cold, warm), tag) per model
     models = {
         "cartpole": (m.envelope_batch, IPOptions(**cartpole.DEPLOY_IP_ACCEL),
-                     (1024, 4), 1, 3),
+                     (1024, 4), 25600, 1, 3, "k1"),
         "acrobot": (acrobot.envelope_batch,
                     IPOptions(**acrobot.DEPLOY_IP_ACCEL,
                               **acrobot.DEPLOY_KAPPA_SCHEDULE),
-                    (512, 42), 40, 41)}
+                    (512, 42), 25600, 40, 41, "k1a"),
+        "planar_push": (m.push_batch, IPOptions(**push.DEPLOY_IP_ACCEL),
+                        (512, 32), 6400, 30, 31, "k1n")}
     solvers = {}
-    for name, (batch, opts, (nr, sr), sc, sw) in models.items():
+    for name, (batch, opts, (nr, sr), ns, sc, sw, tag) in models.items():
         model, z0s, ths = batch(nr, sr, dev, f32)
         kern = k1.make_fused_ip_solver(model, opts, dev, f32)
-        solvers[name] = (model, kern, batch, sc, sw)
-        _, z0c, thc = batch(25600, sc, dev, f32)
-        tag = "k1" if name == "cartpole" else "k1a"
+        solvers[name] = (model, kern, batch, sc, sw, tag)
+        _, z0c, thc = batch(ns, sc, dev, f32)
         for case, (z0, th) in {
-                "cold_%d" % nr: (z0s, ths), "cold_25600": (z0c, thc),
-                "warm_25600": m.warm_batch(kern, model, z0c, thc, sw)}.items():
+                "cold_%d" % nr: (z0s, ths), "cold_%d" % ns: (z0c, thc),
+                "warm_%d" % ns: m.warm_batch(kern, model, z0c, thc,
+                                             sw)}.items():
             out["%s_%s" % (tag, case)] = time_ip(kern, z0, th)
 
     # K4 at 1,024 scenarios, phase 5's inputs
@@ -138,17 +146,17 @@ def main(argv=None) -> None:
 
     out["k4_1024"] = time_rollout(roll, rollout_args(1024))
 
-    model, kern, batch, sc, sw = solvers[args.model]
+    model, kern, batch, sc, sw, tag = solvers[args.model]
+    narrow = "group" if args.model == "planar_push" else "tile"
     for w in filter(None, args.widths.split(",")):
         _, z0c, thc = batch(int(w), sc, dev, f32)
         cases = {"cold_": (z0c, thc),
                  "warm_": m.warm_batch(kern, model, z0c, thc, sw)}
         for case, (z0, th) in cases.items():
-            out["%s_%s%s" % ("k1" if args.model == "cartpole" else "k1a",
-                             case, w)] = {
-                route: time_ip(m.routed(model.kernel, route == "tile", kern),
-                               z0, th)
-                for route in ("tile", "thread")}
+            out["%s_%s%s" % (tag, case, w)] = {
+                route: time_ip(m.routed(model.kernel, route == narrow,
+                                        kern), z0, th)
+                for route in (narrow, "thread")}
         if args.model == "cartpole":
             a = rollout_args(int(w))
             out["k4_" + w] = {
@@ -156,9 +164,9 @@ def main(argv=None) -> None:
                                              roll), a)
                 for route in ("tile", "thread")}
 
-    pm, pz, pth = m.push_batch(6400, 30, dev, f32)
-    zs = k1.make_fused_ip_solver(pm, IPOptions(**push.DEPLOY_IP_ACCEL), dev,
-                                 f32)(pz, pth).z
+    pm, pkern = solvers["planar_push"][:2]
+    _, pz, pth = m.push_batch(6400, 30, dev, f32)
+    zs = pkern(pz, pth).z
     A = batched_jacobian(pm.residual, 0)(zs, pth)
     b = batched_jacobian(pm.residual, 1)(zs, pth)
     out["k2_35_13"] = dict(

@@ -17,7 +17,8 @@ Run from the repository root on a machine with one CUDA card:
 ``examples/planar_push.py``, ``examples/acrobot.py``, ``main
 --deploy``), which prints its own summary, then prints one JSON line: the
 K1 (K1n for push, K1a for acrobot), K2 and K4 launches of the solve, K1's
-and K4's launches by kernel (tile or per-thread) and width, the mean and
+and K4's launches by kernel (tile, group for K1n, or per-thread) and
+width, the mean and
 median converged objective and, with ``--lanes``, each lane's flag,
 objective and inner iterations. The batch defaults to the deploy width:
 512 for cartpole, 256 for push and acrobot. ``--fused-rollout`` and
@@ -58,11 +59,11 @@ def _launch_counters():
 
 
 def _by_width(widths) -> dict:
-    """``{"tile": {B: launches}, "thread": {...}}`` of a wrapper's
-    ``widths`` Counter."""
+    """``{"tile": {B: launches}, "group": {...}, "thread": {...}}`` of a
+    wrapper's ``widths`` Counter."""
     return {route: {str(b): n for (r, b), n in sorted(widths.items())
                     if r == route}
-            for route in ("tile", "thread")}
+            for route in ("tile", "group", "thread")}
 
 
 def _kernel_flags(args) -> list:
@@ -127,9 +128,10 @@ def _busy_seconds(intervals) -> float:
 def _kernel_label(name: str) -> str:
     """The port's kernel a profiler event belongs to, by the CUDA kernel's
     name: K1 (cartpole), K1n (push) or K1a (acrobot) by the functor, each
-    the tile or the per-thread kernel; K2 the per-thread or the group
-    solve; K4 the tile or the per-thread rollout."""
+    the tile (K1n: group) or the per-thread kernel; K2 the per-thread or
+    the group solve; K4 the tile or the per-thread rollout."""
     for key, label in (("fused_ip_tile_kernel", "fused_ip (tile)"),
+                       ("fused_ip_group_kernel", "fused_ip (group)"),
                        ("fused_ip_kernel", "fused_ip"),
                        ("batched_solve_group_kernel",
                         "K2 batched_solve (group)"),
