@@ -25,9 +25,18 @@ kernels/csrc`` and runs twelve phases, each printing one ``#`` line:
    each case with its bound;
 2. K2 (batched QR solve) against its plain version: the 25,600 IFT
    systems of a derivative sweep (10x10, 8 right-hand sides, Jacobians at
-   K1 solutions) and KKT-like saddle systems, relative residual <= 1e-5
-   in float32 and <= 1e-12 in float64, and on the IFT systems
-   max|dx| / max|x| <= 1e-3 (float32) and 1e-10 (float64); timed;
+   K1 solutions), the first 4,096 with one right-hand side, the first
+   4,093 (a ragged batch: not a whole number of tiles a block) and
+   KKT-like saddle systems, relative residual <= 1e-5 in float32 and <=
+   1e-12 in float64, and on the IFT systems max|dx| / max|x| <= 1e-3
+   (float32) and 1e-10 (float64); each case through the wrapper's route
+   and through each of K2's two kernels at n <= 16 (tile, per-thread),
+   forced by the width cut, recording whether the two give x bit for
+   bit, and x bit for bit from contiguous and row-interleaved systems;
+   the route at the (10, 8) cut and one system past it (the systems
+   repeated to that width; with the cut at 0, one system and all of
+   them); float32 timed through each kernel, one call
+   and queued, beside ``torch.linalg.solve``;
 3. the main path at full width: the cartpole deploy problem (float32,
    T=51) solved by the segmented executor at B=512 for two AL rounds of
    three inner iterations; outputs finite, the objective below the
@@ -38,11 +47,16 @@ kernels/csrc`` and runs twelve phases, each printing one ``#`` line:
    on the card against the same solve on the CPU;
 4. K3 (Riccati backward pass) against its plain version: random LQR data
    (numpy seeds) at the deploy shape (nx=4, nu=1, T=51) at B=512 and
-   25,600, a ragged ``u_mask`` at (4, 3, 6) and an indefinite Quu on
-   every fifth lane at t=0; ``ok`` identical on every lane, relative
-   difference <= 1e-10 in float64 and <= 1e-4 in float32 (on a lane that
-   is not positive definite float32 compares the gains only: its dV2
-   overflows); masked gains exactly 0; float32 timed at B=512;
+   25,600, a ragged ``u_mask`` at (4, 3, 6), an indefinite Quu on
+   every fifth lane at t=0 and a ragged batch of 509 lanes; ``ok``
+   identical on every lane, relative difference <= 1e-10 in float64 and
+   <= 1e-4 in float32 (on a lane that is not positive definite float32
+   compares the gains only: its dV2 overflows); masked gains exactly 0;
+   each case through the wrapper's route and through each of K3's two
+   kernels (tile, per-thread), forced by the width cut, recording
+   whether the two agree bit for bit; the route at the (4, 1) cut and
+   one lane past it; float32 timed at B=512 and 25,600 through each
+   kernel, one call and queued, beside an empty kernel's launch;
 5. K4 (fused rollout) against its plain version: the deploy IP options,
    T=51, 1,024 lanes from ``rollout_batch``, random gains (numpy seed),
    alphas over the Armijo grid, all controls active and a ragged
@@ -62,7 +76,8 @@ kernels/csrc`` and runs twelve phases, each printing one ``#`` line:
    and width printed), and K1 (either kernel) launched once per backward
    pass (by the derivative sweeps only, never per rollout step); then
    the four-lane float64 card-against-CPU check of phase 3 with both
-   kernels on;
+   kernels on; K2's and K3's launches by kernel and width, each on the
+   kernel its width picks;
 7. K1n (the fused IP solve at nz=35, planar push) against its plain
    version at the push deploy IP options: 6,400 cold scenarios around the
    nominal pose (the push sweep's width, numpy seed 30), the same 6,400
@@ -94,17 +109,18 @@ kernels/csrc`` and runs twelve phases, each printing one ``#`` line:
    counts identical on every lane, max|dz| <= 1e-12 on every lane;
    float32: converged count within 1%, max|dq| <= 2e-4, timed, with its
    share of bound; then K2 at (6, 6) on the 25,600 IFT systems at K1a's
-   solutions, relative residual <= 1e-12 in float64 and <= 1e-4 in
-   float32; float32 timed;
+   solutions, through the wrapper's route and through each of its two
+   kernels, and the route at its cut and one system past it, relative
+   residual <= 1e-12 in float64 and <= 1e-4 in float32; float32 timed;
 10. the acrobot main path at full width: the acrobot deploy problem
    (float32, T=101) solved by the segmented executor at B=256 for two AL
    rounds of three inner iterations; outputs finite, the terminal
    violation below the open-loop rollout's on most lanes (the rest start
    costs almost nothing and misses the goal by pi), the elbow within its
-   joint limit, K1a's tile kernel and K2 launched, every K1a launch on
-   the kernel its width picks (its launches by kernel and width
-   printed); then the four-lane float64 card-against-CPU check of phase
-   3 on the acrobot;
+   joint limit, K1a's tile kernel and K2 launched, every K1a and K2
+   launch on the kernel its width picks (their launches by kernel and
+   width printed); then the four-lane float64 card-against-CPU check of
+   phase 3 on the acrobot;
 11. K5 (the loop-overhead probe) through its entry point
    (``scripts/loop_overhead.py``: each variant timed over 20 launches
    after a warm-up), then each variant against its plain version,
@@ -128,8 +144,23 @@ two warps (``csrc/ip_group.cuh``): thread j builds column j, the group
 solves with a column a thread, warp 0 runs the line search's candidates,
 and the scenario's state sits once in shared memory; wider launches run
 one scenario a thread. K2 above 16 unknowns runs one system on a
-64-thread block, a column a thread; at or below 16, one thread a
-system. K3 and K5 run one scenario (or one column, K5) a thread.
+64-thread block, a column a thread; at or below 16, up to its cut
+(``BATCHED_SOLVE_TILE_MAX_B``) one system on a tile of threads (the
+smallest power of two >= n + k: 32 at (10, 8), 16 at (6, 6)), a column
+a thread, wider launches one system a thread (at (10, 8), whose cut is
+0, every launch). K3 up to its cut
+(``RICCATI_TILE_MAX_B``) runs one scenario on a tile of threads (an
+element of the nx x nx updates a thread, up to a warp: 16 at nx=4), its
+state and the step's inputs in shared memory, an element or a column of
+the step's matrices a thread; wider launches one scenario a thread. K5 runs one column a
+thread.
+
+Times: ``ms`` is the median of CUDA events around one call, host work
+inside the call included, for every kernel; ``ms_device`` (K2, K3 and
+an empty kernel), beside it, times calls queued back to back behind a
+spin kernel, the card's own time a call (``utils/measure.py``). K2 is
+timed on the IFT systems as the derivative sweep passes them
+(``batched_jacobian``'s row-interleaved strides, read as they are).
 
 Each kernel's ``bound_ms`` is the larger of its bytes (each input read
 once, each output written once) at 3.35 TB/s and its operations at the
@@ -152,8 +183,16 @@ its tile kernel, timed on those 1,024; ``fused_rollout`` and
 K1a's per-thread kernel at 25,600 warm lanes, ``fused_ip_acrobot_tile``
 its tile kernel at 512 cold lanes; ``fused_ip_nz35`` K1n's per-thread
 kernel at 6,400 warm lanes, ``fused_ip_nz35_group`` its group kernel at
-512 cold lanes, with its time at 6,400 warm as ``ms_warm_6400``). The
-last line is ``{"ok": true,
+512 cold lanes, with its time at 6,400 warm as ``ms_warm_6400``;
+``batched_solve`` and ``batched_solve_tile`` K2's per-thread and tile
+kernels on the 25,600 (10, 8) systems, ``batched_solve_n6_k6`` and
+``batched_solve_n6_k6_tile`` on the 25,600 (6, 6) ones; ``riccati`` and
+``riccati_tile`` K3's per-thread and tile kernels at B=512, with their
+times at 25,600 as ``ms_25600`` and ``ms_device_25600``; K2's
+``library_ms`` is one call of ``torch.linalg.solve``, which waits for
+the card to check its pivots, so its calls cannot be queued; and
+``riccati_tile`` carries an empty kernel's launch time, both ways,
+beside its bound). The last line is ``{"ok": true,
 "device": {...}}``. It needs one card and no network.
 """
 
@@ -167,8 +206,9 @@ import time
 import numpy as np
 
 from optimization_dynamics_tpu_torch.utils.measure import (
-    cuda_ms, envelope_batch, nvidia_smi, push_batch, rel_residual,
-    rollout_batch, routed, warm_batch)
+    cuda_ms, cut_routed, device_ms, envelope_batch, grow_batch,
+    ift_systems, interleave_rows, launch_ms, lqr_batch, nvidia_smi,
+    push_batch, rel_residual, rollout_batch, routed, warm_batch)
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
@@ -322,14 +362,10 @@ def _ift_systems(B: int, seed: int, device, dtype):
     dr/dtheta (B, 10, 8) at cold K1 solutions of envelope scenarios."""
     from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import (
         make_fused_ip_solver)
-    from optimization_dynamics_tpu_torch.solver.interior_point import (
-        batched_jacobian)
 
     model, z0s, ths = envelope_batch(B, seed, device, dtype)
-    zs = make_fused_ip_solver(model, deploy_ip_options(), device,
-                              dtype)(z0s, ths).z
-    return (batched_jacobian(model.residual, 0)(zs, ths),
-            batched_jacobian(model.residual, 1)(zs, ths))
+    return ift_systems(make_fused_ip_solver(model, deploy_ip_options(),
+                                            device, dtype), model, z0s, ths)
 
 
 def _saddle(B: int, k: int, seed: int, device, dtype):
@@ -349,9 +385,90 @@ def _saddle(B: int, k: int, seed: int, device, dtype):
     return t(A), t(b)
 
 
+def _k2_routes(A, b, xp, res_tol: float, what: str, timed: bool) -> dict:
+    """K2's tile and per-thread kernels on (A, b), each forced by the cut:
+    relative residual <= res_tol each, max|dx| against the plain version's
+    xp, x bit for bit the same from (A, b) contiguous and interleaved row
+    by row (the kernels read strides), and whether the two kernels agree
+    bit for bit; ``timed``: each timed on (A, b) as given, one call
+    (``ms``) and queued (``ms_device``)."""
+    import torch
+
+    from optimization_dynamics_tpu_torch.ops.kernels._build import (
+        BATCHED_SOLVE_TILE_MAX_B)
+    from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
+        batched_solve)
+
+    key = (A.shape[1], b.shape[2])
+    out, xs = {}, {}
+    for route in ("tile", "thread"):
+        run = cut_routed(BATCHED_SOLVE_TILE_MAX_B, key, route == "tile",
+                         batched_solve)
+        tiles = batched_solve.tile_launches
+        x = run(A, b)
+        torch.cuda.synchronize()
+        _check(batched_solve.tile_launches - tiles == (route == "tile"),
+               "K2 %s: not on the %s kernel" % (what, route))
+        _check(bool(torch.isfinite(x).all()), "K2 %s %s: x not finite"
+               % (what, route))
+        rk = rel_residual(A, x, b)
+        _check(rk <= res_tol, "K2 %s %s relative residual %.3e"
+               % (what, route, rk))
+        for layout in ([A.contiguous(), b.contiguous()],
+                       interleave_rows([A, b])):
+            _check(torch.equal(run(*layout), x), "K2 %s %s: x depends on "
+                   "the layout of A and b" % (what, route))
+        dx = float((x - xp).abs().max())
+        out[route] = dict(rel_res=rk, max_dx=dx,
+                          rel_dx=dx / float(xp.abs().max()))
+        if timed:
+            out[route]["ms"] = cuda_ms(lambda: run(A, b))
+            out[route]["ms_device"] = device_ms(lambda: run(A, b))
+        xs[route] = x
+    out["bitwise"] = bool(torch.equal(xs["tile"], xs["thread"]))
+    out["max_dx_tile_thread"] = float((xs["tile"] - xs["thread"]).abs()
+                                      .max())
+    return out
+
+
+def _k2_cut_sides(A, b, res_tol: float, what: str) -> dict:
+    """K2 through the wrapper at its cut and one system past it (the
+    systems repeated to that width, interleaved row by row as the sweep
+    passes them): the tile kernel at the cut, the per-thread kernel past
+    it, residual <= res_tol on each, and whether the shared systems' x
+    agree bit for bit. A cut of 0 routes every width to the per-thread
+    kernel: then one system and all of them."""
+    import torch
+
+    from optimization_dynamics_tpu_torch.ops.kernels._build import (
+        BATCHED_SOLVE_TILE_MAX_B)
+    from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
+        batched_solve)
+
+    cut = BATCHED_SOLVE_TILE_MAX_B[A.shape[1], b.shape[2]]
+    sides = (((cut, "tile"), (cut + 1, "thread")) if cut > 0
+             else ((1, "thread"), (A.shape[0], "thread")))
+    Ag, bg = interleave_rows(grow_batch([A, b], sides[1][0]))
+    xs = {}
+    for B, route in sides:
+        before = batched_solve.widths[route, B]
+        xs[B] = batched_solve(Ag[:B], bg[:B])
+        torch.cuda.synchronize()
+        _check(batched_solve.widths[route, B] == before + 1,
+               "K2 %s at %d systems: not on the %s kernel" % (what, B,
+                                                               route))
+        rk = rel_residual(Ag[:B], xs[B], bg[:B])
+        _check(rk <= res_tol, "K2 %s at %d systems: relative residual "
+               "%.3e" % (what, B, rk))
+    (n0, _), (n1, _) = sides
+    return dict(cut=cut, bitwise=bool(torch.equal(xs[n0], xs[n1][:n0])))
+
+
 def phase_k2(device) -> dict:
     import torch
 
+    from optimization_dynamics_tpu_torch.ops.kernels._build import (
+        batched_solve_route)
     from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
         batched_solve, batched_solve_plain)
 
@@ -363,7 +480,9 @@ def phase_k2(device) -> dict:
         cases = [("ift_k8", (rz, rth)),
                  ("ift_k1", (rz[:4096], rth[:4096, :, 4:5].contiguous())),
                  ("saddle_k8", _saddle(4096, 8, 1, device, dtype)),
-                 ("saddle_k1", _saddle(4096, 1, 2, device, dtype))]
+                 ("saddle_k1", _saddle(4096, 1, 2, device, dtype)),
+                 # ragged: not a whole number of tiles a block
+                 ("ift_k8_ragged", (rz[:4093], rth[:4093]))]
         res = {}
         for case, (A, b) in cases:
             xk = batched_solve(A, b)
@@ -379,7 +498,19 @@ def phase_k2(device) -> dict:
                        % (name, case, rel_dx))
             res[case] = dict(rel_res=rk,
                              rel_res_plain=rel_residual(A, xp, b),
-                             max_dx=dx, rel_dx=rel_dx)
+                             max_dx=dx, rel_dx=rel_dx,
+                             route=batched_solve_route(A.shape[1],
+                                                       b.shape[2],
+                                                       A.shape[0]))
+            res[case]["routes"] = _k2_routes(
+                A, b, xp, res_tol, "%s %s" % (name, case),
+                timed=dtype == torch.float32 and case == "ift_k8")
+            if case.startswith("ift"):
+                _check(all(res[case]["routes"][r]["rel_dx"] <= fwd_tol
+                           for r in ("tile", "thread")),
+                       "K2 %s %s: a kernel's max|dx|/max|x| above %.0e"
+                       % (name, case, fwd_tol))
+        res["cut_sides_k8"] = _k2_cut_sides(rz, rth, res_tol, name)
         A, b = cases[0][1]
         res["ms_25600_k8"] = cuda_ms(lambda: batched_solve(A, b))
         res["plain_ms_25600_k8"] = cuda_ms(
@@ -396,10 +527,39 @@ def phase_k2(device) -> dict:
     return out
 
 
+def _zero_counts(wrapper) -> None:
+    """Set a two-kernel wrapper's launch counts to 0."""
+    wrapper.launches = wrapper.tile_launches = 0
+    wrapper.widths.clear()
+
+
+def _split_counts(name: str, wrapper) -> dict:
+    """A K2 or K3 wrapper's launches since ``_zero_counts``: ``name`` its
+    per-thread (or group) kernel's, ``name + "_tile"`` its tile
+    kernel's."""
+    return {name: wrapper.launches - wrapper.tile_launches,
+            name + "_tile": wrapper.tile_launches}
+
+
+def _routed_widths(what: str, wrapper, cut: int) -> dict:
+    """A K2 or K3 wrapper's launches by kernel and width since
+    ``_zero_counts``, each checked to be on the kernel its width picks:
+    the tile kernel up to ``cut`` (the path's shape in
+    ``BATCHED_SOLVE_TILE_MAX_B`` or ``RICCATI_TILE_MAX_B``), else the
+    per-thread one."""
+    widths = {"%s_%d" % kb: n for kb, n in sorted(wrapper.widths.items())}
+    _check(all((route == "tile") == (b <= cut)
+               for route, b in wrapper.widths),
+           "%s launches off their route: %s" % (what, widths))
+    return widths
+
+
 def phase_main(device) -> dict:
     import torch
 
     from optimization_dynamics_tpu_torch.examples import cartpole as ex
+    from optimization_dynamics_tpu_torch.ops.kernels._build import (
+        BATCHED_SOLVE_TILE_MAX_B)
     from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
         batched_solve)
     from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import fused_ip
@@ -421,7 +581,7 @@ def phase_main(device) -> dict:
                                   al_stall_rounds=1)
 
     fused_ip.launches = fused_ip.tile_launches = 0
-    batched_solve.launches = 0
+    _zero_counts(batched_solve)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = solve(x0s, us0)
@@ -429,7 +589,7 @@ def phase_main(device) -> dict:
     wall = time.perf_counter() - t0
     launches = {"fused_ip": fused_ip.launches - fused_ip.tile_launches,
                 "fused_ip_tile": fused_ip.tile_launches,
-                "batched_solve": batched_solve.launches}
+                **_split_counts("batched_solve", batched_solve)}
 
     for name in ("xs", "us", "objective", "al_objective",
                  "constraint_violation", "lam", "lamT", "rho"):
@@ -442,7 +602,7 @@ def phase_main(device) -> dict:
            "sweeps) not launched on the main path")
     _check(launches["fused_ip_tile"] > 0, "K1 (a tile a scenario, the "
            "rollout steps) not launched on the main path")
-    _check(launches["batched_solve"] > 0,
+    _check(launches["batched_solve"] + launches["batched_solve_tile"] > 0,
            "K2 not launched on the main path")
     conv = res.converged.cpu().numpy()
     obj = res.objective.cpu().numpy()
@@ -451,7 +611,9 @@ def phase_main(device) -> dict:
                mean_objective=float(obj.mean()),
                mean_initial_objective=float(obj0.mean()),
                objective_fell_frac=fell,
-               mean_inner_iters=float(res.iterations.float().mean()))
+               mean_inner_iters=float(res.iterations.float().mean()),
+               batched_solve_widths=_routed_widths(
+                   "K2", batched_solve, BATCHED_SOLVE_TILE_MAX_B[10, 8]))
 
     # small-input agreement: float64 on the card (K1 + K2) against the
     # same solve on the CPU (plain versions), accelerator IP settings
@@ -472,27 +634,6 @@ def phase_main(device) -> dict:
            % (dobj, dus))
     out["small_f64_vs_cpu"] = dict(rel_dobj=dobj, max_dus=dus)
     return out
-
-
-def _lqr(seed: int, B: int, T: int, nx: int, nu: int, device, dtype):
-    """Random LQR data (fxs, fus, lxs, lus, lxxs, luus, luxs, gTs, HTs,
-    regs) from a numpy seed, drawn as the reference's Riccati kernel test
-    draws it."""
-    import torch
-
-    rng = np.random.default_rng(seed)
-    n = lambda *s: rng.standard_normal(s)
-
-    def spd(m):
-        A = n(B, T - 1, m, m)
-        return np.einsum("btij,btkj->btik", A, A) + 0.5 * np.eye(m)
-
-    A = n(B, nx, nx)
-    data = [0.5 * n(B, T - 1, nx, nx), 0.5 * n(B, T - 1, nx, nu),
-            n(B, T - 1, nx), n(B, T - 1, nu), spd(nx), spd(nu),
-            0.3 * n(B, T - 1, nu, nx), n(B, nx),
-            np.einsum("bij,bkj->bik", A, A) + np.eye(nx), np.full(B, 1e-6)]
-    return [torch.as_tensor(a, dtype=dtype, device=device) for a in data]
 
 
 def _rel_diff(got, ref, lanes=None) -> float:
@@ -519,64 +660,135 @@ def _riccati_flops(nx: int, nu: int) -> int:
     return q_terms + chol + value + 4 * nu
 
 
+def _k3_agreement(got, ref, bad, dtype, tol: float, what: str,
+                  nu: int, ragged: bool) -> dict:
+    """K3's outputs against its plain version's; see the module docstring
+    for the checks."""
+    import torch
+
+    _check(torch.equal(got[5], ref[5]), "K3 %s: ok flags differ" % what)
+    _check(torch.equal(got[5], ~bad),
+           "K3 %s: ok is not 'every pivot > 0'" % what)
+    _check(bool(torch.isfinite(got[0]).all() & torch.isfinite(got[1]).all()),
+           "K3 %s: gains not finite" % what)
+    rel = _rel_diff(got[:5], ref[:5], ~bad)
+    if bool(bad.any()):
+        whole = (got[:5] if dtype == torch.float64 else got[:2])
+        rel = max(rel, _rel_diff(whole, ref[:len(whole)], bad))
+    _check(rel <= tol, "K3 %s: relative difference %.3e" % (what, rel))
+    if ragged:
+        _check(bool((got[0][:, :, nu - 1] == 0).all()
+                    & (got[1][:, 0, 0] == 0).all()),
+               "K3 %s: masked gains not 0" % what)
+    return dict(rel_diff=rel,
+                max_abs_err=float(max((g - r)[~bad].abs().max()
+                                      for g, r in zip(got[:2], ref[:2]))),
+                ok_lanes=int(got[5].sum()), lanes=int(got[5].numel()))
+
+
 def phase_k3(device) -> dict:
     import torch
 
+    from optimization_dynamics_tpu_torch.ops.kernels._build import (
+        RICCATI_TILE_MAX_B, riccati_route)
     from optimization_dynamics_tpu_torch.ops.kernels.riccati import (
         riccati_backward, riccati_backward_plain)
 
-    # case -> (B, T, nx, nu, seed)
+    # case -> (B, T, nx, nu, seed); 509 lanes are not a whole number of
+    # the tile kernel's tiles a block
     cases = {"deploy_512": (512, 51, 4, 1, 10),
              "deploy_25600": (25600, 51, 4, 1, 11),
              "ragged_4_3_6": (512, 6, 4, 3, 12),
-             "indefinite_512": (512, 51, 4, 1, 13)}
+             "indefinite_512": (512, 51, 4, 1, 13),
+             "ragged_batch_509": (509, 51, 4, 1, 14)}
     out = {}
     for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
         name = "f64" if dtype == torch.float64 else "f32"
-        res = {}
+        res, inputs = {}, {}
         for case, (B, T, nx, nu, seed) in cases.items():
-            data = _lqr(seed, B, T, nx, nu, device, dtype)
+            data = lqr_batch(seed, B, T, nx, nu, device, dtype)
             mask = torch.ones((T - 1, nu), dtype=dtype, device=device)
-            if case.startswith("ragged"):
+            if case.startswith("ragged_4"):
                 mask[:, nu - 1] = 0
                 mask[0, 0] = 0
             bad = torch.zeros(B, dtype=torch.bool, device=device)
             if case.startswith("indefinite"):
                 bad[::5] = True
                 data[5][bad, 0] = -1.0e4
-            got = riccati_backward(*data, mask)
+            inputs[case] = (data, mask)
             ref = riccati_backward_plain(*data, mask)
-            torch.cuda.synchronize()
-            _check(torch.equal(got[5], ref[5]),
-                   "K3 %s %s: ok flags differ" % (name, case))
-            _check(torch.equal(got[5], ~bad),
-                   "K3 %s %s: ok is not 'every pivot > 0'" % (name, case))
-            _check(bool(torch.isfinite(got[0]).all()
-                        & torch.isfinite(got[1]).all()),
-                   "K3 %s %s: gains not finite" % (name, case))
-            rel = _rel_diff(got[:5], ref[:5], ~bad)
-            if bool(bad.any()):
-                whole = (got[:5] if dtype == torch.float64 else got[:2])
-                rel = max(rel, _rel_diff(whole, ref[:len(whole)], bad))
-            _check(rel <= tol, "K3 %s %s: relative difference %.3e"
-                   % (name, case, rel))
-            if case.startswith("ragged"):
-                _check(bool((got[0][:, :, nu - 1] == 0).all()
-                            & (got[1][:, 0, 0] == 0).all()),
-                       "K3 %s: masked gains not 0" % name)
-            res[case] = dict(rel_diff=rel,
-                             max_abs_err=float(max(
-                                 (g - r)[~bad].abs().max()
-                                 for g, r in zip(got[:2], ref[:2]))),
-                             ok_lanes=int(got[5].sum()), lanes=B)
+            runs = {"route": riccati_backward}
+            for route in ("tile", "thread"):
+                runs[route] = cut_routed(RICCATI_TILE_MAX_B, (nx, nu),
+                                         route == "tile", riccati_backward)
+            got = {}
+            for key, run in runs.items():
+                tiles = riccati_backward.tile_launches
+                got[key] = run(*data, mask)
+                torch.cuda.synchronize()
+                if key != "route":
+                    _check(riccati_backward.tile_launches - tiles
+                           == (key == "tile"),
+                           "K3 %s %s: not on the %s kernel"
+                           % (name, case, key))
+                agree = _k3_agreement(got[key], ref, bad, dtype, tol,
+                                      "%s %s %s" % (name, case, key), nu,
+                                      case.startswith("ragged_4"))
+                if key == "route":
+                    res[case] = dict(agree, route=riccati_route(nx, nu, B))
+                else:
+                    res[case][key] = agree
+            res[case]["tile_bitwise_thread"] = all(
+                torch.equal(a, b) for a, b in zip(got["tile"],
+                                                  got["thread"]))
             if dtype == torch.float32 and case == "deploy_512":
                 res[case]["ms"] = cuda_ms(
                     lambda: riccati_backward(*data, mask))
                 res[case]["plain_ms"] = cuda_ms(
                     lambda: riccati_backward_plain(*data, mask), reps=3)
                 res[case].update(_bound(
-                    _nbytes(*data, mask, *got[:2]) + 4 * B * 4,
+                    _nbytes(*data, mask, *got["route"][:2]) + 4 * B * 4,
                     B * (T - 1) * _riccati_flops(nx, nu)))
+        if dtype == torch.float32:
+            # each kernel, forced by the cut, at the deploy's width and at
+            # 25,600 lanes: one call (ms) and queued (ms_device)
+            for case in ("deploy_512", "deploy_25600"):
+                data, mask = inputs[case]
+                for route in ("tile", "thread"):
+                    run = cut_routed(RICCATI_TILE_MAX_B, (4, 1),
+                                     route == "tile", riccati_backward)
+                    res[case][route].update(
+                        ms=cuda_ms(lambda: run(*data, mask)),
+                        ms_device=device_ms(lambda: run(*data, mask)))
+                if case == "deploy_25600":
+                    B = data[0].shape[0]
+                    ks = run(*data, mask)[:2]
+                    res[case].update(_bound(
+                        _nbytes(*data, mask, *ks) + 4 * B * 4,
+                        B * 50 * _riccati_flops(4, 1)))
+            # the floor under a launch: an empty kernel on this card
+            res["empty_launch"] = launch_ms()
+        # the route at its cut and one lane past it (the deploy_25600 lanes
+        # repeated): the tile kernel at the cut, the per-thread one past
+        # it; the shared lanes' outputs bit for bit
+        cut = RICCATI_TILE_MAX_B[4, 1]
+        data, mask = inputs["deploy_25600"]
+        data = grow_batch(data, cut + 1)
+        sides = {}
+        for B, route in ((cut, "tile"), (cut + 1, "thread")):
+            before = riccati_backward.widths[route, B]
+            sides[B] = riccati_backward(*(a[:B] for a in data), mask)
+            torch.cuda.synchronize()
+            _check(riccati_backward.widths[route, B] == before + 1,
+                   "K3 %s at %d lanes: not on the %s kernel" % (name, B,
+                                                                route))
+            _check(bool(sides[B][5].all() & torch.isfinite(sides[B][0])
+                        .all()), "K3 %s at %d lanes: not ok or not "
+                   "finite" % (name, B))
+        res["cut_sides"] = dict(cut=cut, bitwise=all(
+            torch.equal(a, b[:cut]) for a, b in zip(sides[cut],
+                                                    sides[cut + 1])))
+        del data, sides
         out[name] = res
     return out
 
@@ -697,7 +909,7 @@ def phase_new_path(device) -> dict:
 
     from optimization_dynamics_tpu_torch.examples import cartpole as ex
     from optimization_dynamics_tpu_torch.ops.kernels._build import (
-        FUSED_IP_TILE_MAX_B)
+        BATCHED_SOLVE_TILE_MAX_B, FUSED_IP_TILE_MAX_B, RICCATI_TILE_MAX_B)
     from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
         batched_solve)
     from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import fused_ip
@@ -722,12 +934,13 @@ def phase_new_path(device) -> dict:
                                   max_iter_schedule=[3, 3],
                                   al_stall_rounds=1)
 
-    counters = {"fused_ip": fused_ip, "batched_solve": batched_solve,
-                "riccati": riccati_backward, "fused_rollout": fused_rollout}
+    counters = {"fused_ip": fused_ip, "fused_rollout": fused_rollout}
     for c in counters.values():
         c.launches = 0
     fused_ip.tile_launches = fused_rollout.tile_launches = 0
     fused_rollout.widths.clear()
+    _zero_counts(batched_solve)
+    _zero_counts(riccati_backward)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = solve(x0s, us0)
@@ -738,6 +951,10 @@ def phase_new_path(device) -> dict:
     launches["fused_ip_tile"] = fused_ip.tile_launches
     launches["fused_rollout"] -= fused_rollout.tile_launches
     launches["fused_rollout_tile"] = fused_rollout.tile_launches
+    launches.update(_split_counts("batched_solve", batched_solve))
+    launches.update(_split_counts("riccati", riccati_backward))
+    k2_launches = launches["batched_solve"] + launches["batched_solve_tile"]
+    k3_launches = launches["riccati"] + launches["riccati_tile"]
     k4_widths = {"%s_%d" % kb: n
                  for kb, n in sorted(fused_rollout.widths.items())}
 
@@ -748,8 +965,10 @@ def phase_new_path(device) -> dict:
     _check(tuple(res.xs.shape) == (B, ex.T, ex.NX), "xs shape")
     fell = float((res.objective < obj0).float().mean())
     _check(fell >= 0.5, "objective fell on only %.3f of lanes" % fell)
-    for k in ("batched_solve", "riccati", "fused_rollout_tile"):
-        _check(launches[k] > 0, "%s not launched on the new path" % k)
+    _check(k2_launches > 0, "batched_solve not launched on the new path")
+    _check(k3_launches > 0, "riccati not launched on the new path")
+    _check(launches["fused_rollout_tile"] > 0,
+           "fused_rollout_tile not launched on the new path")
     # K4's route: each launch on the kernel its width picks
     cut = FUSED_IP_TILE_MAX_B["fused_rollout", "cartpole_friction"]
     _check(all((route == "tile") == (b <= cut)
@@ -759,9 +978,9 @@ def phase_new_path(device) -> dict:
     # narrows as lanes converge) per backward pass (one K3 launch): no K1
     # launch comes from a rollout step
     k1_launches = launches["fused_ip"] + launches["fused_ip_tile"]
-    _check(k1_launches == launches["riccati"],
+    _check(k1_launches == k3_launches,
            "K1 launched %d times for %d backward passes"
-           % (k1_launches, launches["riccati"]))
+           % (k1_launches, k3_launches))
     conv = res.converged.cpu().numpy()
     obj = res.objective.cpu().numpy()
     out = dict(wall_s=wall, launches=launches, stats=dict(solve.stats),
@@ -770,7 +989,11 @@ def phase_new_path(device) -> dict:
                mean_initial_objective=float(obj0.mean()),
                objective_fell_frac=fell,
                mean_inner_iters=float(res.iterations.float().mean()),
-               fused_rollout_widths=k4_widths)
+               fused_rollout_widths=k4_widths,
+               batched_solve_widths=_routed_widths(
+                   "K2", batched_solve, BATCHED_SOLVE_TILE_MAX_B[10, 8]),
+               riccati_widths=_routed_widths("K3", riccati_backward,
+                                             RICCATI_TILE_MAX_B[4, 1]))
 
     # small-input agreement with both kernels on: float64 on the card
     # against the same solve on the CPU (plain versions)
@@ -811,13 +1034,11 @@ def _fused_ip_phase(device, batch, opts, n_sweep: int, seeds,
     import torch
 
     from optimization_dynamics_tpu_torch.ops.kernels._build import (
-        FUSED_IP_TILE_MAX_B, fused_ip_narrow)
+        FUSED_IP_TILE_MAX_B, UNROLL_MAX_N, fused_ip_narrow)
     from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
         batched_solve, batched_solve_plain)
     from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import (
         make_fused_ip_plain, make_fused_ip_solver)
-    from optimization_dynamics_tpu_torch.solver.interior_point import (
-        batched_jacobian)
 
     out = {}
     for dtype in (torch.float64, torch.float32):
@@ -866,20 +1087,26 @@ def _fused_ip_phase(device, batch, opts, n_sweep: int, seeds,
                 res[key]["bound_share"] = res[key]["bound_ms"] / res[key]["ms"]
 
         # K2 on the IFT systems of the sweep at the kernel's cold solutions
-        zs = kern(z0c, thc).z
-        A = batched_jacobian(model.residual, 0)(zs, thc)
-        b = batched_jacobian(model.residual, 1)(zs, thc)
+        A, b = ift_systems(kern, model, z0c, thc)
         n, k = A.shape[1], b.shape[2]
+        res_tol = 1e-12 if dtype == torch.float64 else 1e-4
         xk, xp = batched_solve(A, b), batched_solve_plain(A, b)
         torch.cuda.synchronize()
         rk = rel_residual(A, xk, b)
         _check(bool(torch.isfinite(xk).all()), "K2 %s (%d, %d): x not "
                "finite" % (name, n, k))
-        _check(rk <= (1e-12 if dtype == torch.float64 else 1e-4),
+        _check(rk <= res_tol,
                "K2 %s (%d, %d) relative residual %.3e" % (name, n, k, rk))
         dx = float((xk - xp).abs().max())
         k2 = dict(rel_res=rk, rel_res_plain=rel_residual(A, xp, b),
                   max_dx=dx, rel_dx=dx / float(xp.abs().max()))
+        if n <= UNROLL_MAX_N:
+            # the tile and per-thread kernels, each forced by the cut; the
+            # route at the cut and one system past it
+            what = "%s (%d, %d)" % (name, n, k)
+            k2["routes"] = _k2_routes(A, b, xp, res_tol, what,
+                                      timed=dtype == torch.float32)
+            k2["cut_sides"] = _k2_cut_sides(A, b, res_tol, what)
         if dtype == torch.float32:
             k2["ms"] = cuda_ms(lambda: batched_solve(A, b))
             k2["plain_ms"] = cuda_ms(lambda: batched_solve_plain(A, b))
@@ -1031,7 +1258,7 @@ def phase_acrobot(device) -> dict:
 
     from optimization_dynamics_tpu_torch.examples import acrobot as ex
     from optimization_dynamics_tpu_torch.ops.kernels._build import (
-        FUSED_IP_TILE_MAX_B)
+        BATCHED_SOLVE_TILE_MAX_B, FUSED_IP_TILE_MAX_B)
     from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
         batched_solve)
     from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import fused_ip
@@ -1058,20 +1285,17 @@ def phase_acrobot(device) -> dict:
                                   max_iter_schedule=[3, 3],
                                   al_stall_rounds=ex.DEPLOY_AL_STALL_ROUNDS)
 
-    counters = {"fused_ip_acrobot": fused_ip,
-                "batched_solve_n6_k6": batched_solve}
-    for c in counters.values():
-        c.launches = 0
-    fused_ip.tile_launches = 0
+    fused_ip.launches = fused_ip.tile_launches = 0
     fused_ip.widths.clear()
+    _zero_counts(batched_solve)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = solve(x0s, us0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: c.launches for k, c in counters.items()}
-    launches["fused_ip_acrobot"] -= fused_ip.tile_launches
-    launches["fused_ip_acrobot_tile"] = fused_ip.tile_launches
+    launches = {"fused_ip_acrobot": fused_ip.launches - fused_ip.tile_launches,
+                "fused_ip_acrobot_tile": fused_ip.tile_launches,
+                **_split_counts("batched_solve_n6_k6", batched_solve)}
     k1a_widths = {"%s_%d" % kb: n
                   for kb, n in sorted(fused_ip.widths.items())}
 
@@ -1083,8 +1307,11 @@ def phase_acrobot(device) -> dict:
     fell = float((res.constraint_violation < vio0).float().mean())
     _check(fell >= 0.5, "acrobot terminal violation fell on only %.3f of "
            "lanes" % fell)
-    for k in ("fused_ip_acrobot_tile", "batched_solve_n6_k6"):
-        _check(launches[k] > 0, "%s not launched on the acrobot path" % k)
+    _check(launches["fused_ip_acrobot_tile"] > 0,
+           "fused_ip_acrobot_tile not launched on the acrobot path")
+    _check(launches["batched_solve_n6_k6"]
+           + launches["batched_solve_n6_k6_tile"] > 0,
+           "batched_solve_n6_k6 not launched on the acrobot path")
     # K1a's route: each launch on the kernel its width picks
     cut = FUSED_IP_TILE_MAX_B["fused_ip", "acrobot_impact"]
     _check(all((route == "tile") == (b <= cut)
@@ -1103,7 +1330,9 @@ def phase_acrobot(device) -> dict:
                max_violation=float(res.constraint_violation.max()),
                max_elbow=elbow,
                mean_inner_iters=float(res.iterations.float().mean()),
-               fused_ip_widths=k1a_widths)
+               fused_ip_widths=k1a_widths,
+               batched_solve_widths=_routed_widths(
+                   "K2", batched_solve, BATCHED_SOLVE_TILE_MAX_B[6, 6]))
 
     # small-input agreement: float64 on the card (K1a + K2) against the
     # same solve on the CPU (plain versions), accelerator IP settings
@@ -1222,13 +1451,45 @@ def main() -> int:
 
     src = "optimization_dynamics_tpu_torch/ops/kernels/csrc/"
     tpu = "optimization_dynamics_tpu/ops/pallas/"
-    k1t, k3t = k1["f32"]["warm_25600"], k3["f32"]["deploy_512"]
+    k1t = k1["f32"]["warm_25600"]
     k1r = k1["f32"]["cold_1024"]
     k4t, k4s = k4["f32"]["all_active_thread"], k4["f32"]["all_active_tile"]
     k4p = k4["f32"]["all_active"]["plain_ms"]
     k2b = k2["f32"]["bound_25600_k8"]
+    k3d, k3w = k3["f32"]["deploy_512"], k3["f32"]["deploy_25600"]
     k1nt, k2p = k1n["f32"]["thread_warm_6400"], k1n["f32"]["k2_ift_6400"]
     k1ng = k1n["f32"]["group_cold_512"]
+
+    def k2_entry(name, route, routes, plain_ms, bound, library_ms):
+        """K2's tile or per-thread kernel, timed in one call (``ms``) and
+        queued (``ms_device``)."""
+        r = routes[route]
+        return dict(name=name, route="cuda", source=src + "batched_solve.cu",
+                    replaces=tpu + "batched_solve.py:119",
+                    max_abs_err=r["max_dx"], ms=r["ms"],
+                    ms_device=r["ms_device"], plain_ms=plain_ms,
+                    bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                    library_ms=library_ms)
+
+    def k3_entry(name, route):
+        return dict(name=name, route="cuda", source=src + "riccati.cu",
+                    replaces=tpu + "riccati.py:262",
+                    max_abs_err=max(c[route]["max_abs_err"]
+                                    for c in k3["f32"].values()
+                                    if isinstance(c, dict) and route in c),
+                    ms=k3d[route]["ms"],
+                    ms_device=k3d[route]["ms_device"],
+                    plain_ms=k3d["plain_ms"],
+                    bound_ms=k3d["bound_ms"], bound_by=k3d["bound_by"],
+                    library_ms=None,
+                    ms_25600=k3w[route]["ms"],
+                    ms_device_25600=k3w[route]["ms_device"],
+                    bound_ms_25600=k3w["bound_ms"])
+
+    k2r = k2["f32"]["ift_k8"]["routes"]
+    # one call: linalg.solve waits for the card to check its pivots, so
+    # its calls cannot be queued
+    k2lib = k2["f32"]["library_ms_25600_k8"]
     kernels = [
         dict(name="fused_ip", route="cuda", source=src + "fused_ip.cu",
              replaces=tpu + "fused_ip.py:410",
@@ -1236,20 +1497,14 @@ def main() -> int:
              ms=k1t["ms"], plain_ms=k1t["plain_ms"],
              bound_ms=k1t["bound_ms"], bound_by=k1t["bound_by"],
              library_ms=None, ms_cold_1024=k1r["ms"]),
-        dict(name="batched_solve", route="cuda",
-             source=src + "batched_solve.cu",
-             replaces=tpu + "batched_solve.py:119",
-             max_abs_err=k2["f32"]["ift_k8"]["max_dx"],
-             ms=k2["f32"]["ms_25600_k8"],
-             plain_ms=k2["f32"]["plain_ms_25600_k8"],
-             bound_ms=k2b["bound_ms"], bound_by=k2b["bound_by"],
-             library_ms=k2["f32"]["library_ms_25600_k8"]),
-        dict(name="riccati", route="cuda", source=src + "riccati.cu",
-             replaces=tpu + "riccati.py:262",
-             max_abs_err=max(c["max_abs_err"] for c in k3["f32"].values()),
-             ms=k3t["ms"], plain_ms=k3t["plain_ms"],
-             bound_ms=k3t["bound_ms"], bound_by=k3t["bound_by"],
-             library_ms=None),
+        k2_entry("batched_solve", "thread", k2r,
+                 k2["f32"]["plain_ms_25600_k8"], k2b, k2lib),
+        k2_entry("batched_solve_tile", "tile", k2r,
+                 k2["f32"]["plain_ms_25600_k8"], k2b, k2lib),
+        k3_entry("riccati", "thread"),
+        dict(k3_entry("riccati_tile", "tile"),
+             empty_launch_ms=k3["f32"]["empty_launch"]["ms"],
+             empty_launch_ms_device=k3["f32"]["empty_launch"]["ms_device"]),
         dict(name="fused_rollout", route="cuda",
              source=src + "fused_rollout.cu",
              replaces=tpu + "fused_rollout.py:177",
@@ -1327,13 +1582,12 @@ def main() -> int:
              ms=k1as["ms"], plain_ms=k1a["f32"]["cold_512"]["plain_ms"],
              bound_ms=k1as["bound_ms"], bound_by=k1as["bound_by"],
              library_ms=None),
-        dict(name="batched_solve_n6_k6", route="cuda",
-             source=src + "batched_solve.cu",
-             replaces=tpu + "batched_solve.py:119",
-             launches=ac["launches"]["batched_solve_n6_k6"],
-             max_abs_err=k2a["max_dx"], ms=k2a["ms"],
-             plain_ms=k2a["plain_ms"], bound_ms=k2a["bound_ms"],
-             bound_by=k2a["bound_by"], library_ms=k2a["library_ms"]),
+        dict(k2_entry("batched_solve_n6_k6", "thread", k2a["routes"],
+                      k2a["plain_ms"], k2a, k2a["library_ms"]),
+             launches=ac["launches"]["batched_solve_n6_k6"]),
+        dict(k2_entry("batched_solve_n6_k6_tile", "tile", k2a["routes"],
+                      k2a["plain_ms"], k2a, k2a["library_ms"]),
+             launches=ac["launches"]["batched_solve_n6_k6_tile"]),
         dict(name="loop_overhead", route="cuda",
              source=src + "loop_overhead.cu",
              replaces="scripts/loop_overhead_r5.py:50,92",

@@ -38,11 +38,12 @@ import torch
 
 __all__ = ["library_path", "build", "load_library", "ptxas_report",
            "FUSED_IP_FUNCTORS", "FUSED_IP_TILE_MAX_B",
-           "BATCHED_SOLVE_SHAPES", "RICCATI_SHAPES",
+           "BATCHED_SOLVE_SHAPES", "BATCHED_SOLVE_TILE_MAX_B",
+           "RICCATI_SHAPES", "RICCATI_TILE_MAX_B", "UNROLL_MAX_N",
            "FUSED_ROLLOUT_FUNCTORS", "fused_ip_symbol", "fused_ip_narrow",
-           "fused_ip_narrow_symbol",
-           "batched_solve_symbol", "riccati_symbol", "fused_rollout_symbol",
-           "fused_rollout_tile_symbol"]
+           "fused_ip_narrow_symbol", "batched_solve_symbol",
+           "batched_solve_route", "riccati_symbol", "riccati_route",
+           "fused_rollout_symbol", "fused_rollout_tile_symbol"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "odt_kernels"
@@ -82,6 +83,31 @@ FUSED_ROLLOUT_FUNCTORS = {"cartpole_friction": (2, 1)}  # name -> (nq, nu)
 BATCHED_SOLVE_SHAPES = frozenset({(10, 8), (10, 1), (35, 13), (6, 6),
                                   (2, 1), (2, 6)})  # (n, k)
 RICCATI_SHAPES = frozenset({(4, 1), (4, 3), (6, 3), (10, 4)})  # (nx, nu)
+# K2 above this many unknowns runs one 64-thread block a system
+# (csrc/odt_common.cuh, UNROLL_MAX_N); at or below, a tile kernel and a
+# per-thread kernel
+UNROLL_MAX_N = 16
+# The widest batch each wrapper sends its tile kernel (a tile of threads a
+# system or scenario); wider launches run the per-thread kernel. Each cut
+# is the widest width of the sweep (512 to 409,600; K3 at (10, 4) to
+# 102,400; tools/kernel_times.py --linalg-widths, K2 on the derivative
+# sweep's row-interleaved systems; PERF.md section 6) at which the tile
+# kernel took less of the card's time. K3 at (4, 1) and K2 at (6, 6) win
+# at every width swept, so their 409,600 is the end of the sweep, not a
+# measured crossover. K3 at (10, 4) wins at 6,400 and loses from 25,600.
+# K2 at (10, 8) is the exception, at 0: reading the strides made its
+# per-thread kernel as fast as the tile at 25,600 (and faster wider);
+# at 512-6,400 the tile saves at most 0.013 ms of the card's time a
+# launch, which one call, host-bound, does not show, and its rounding
+# (1-2 ulp apart from the per-thread kernel's) moves the f32 deploys. The
+# shapes not swept take the cut of their swept neighbour, or the lower of
+# the two (guessed, not measured): (10, 1) and the acrobot-without-
+# limits shapes (2, 1), (2, 6) that of (10, 8); K3's (4, 3) and (6, 3)
+# that of (10, 4).
+BATCHED_SOLVE_TILE_MAX_B = {(10, 8): 0, (10, 1): 0, (6, 6): 409600,
+                            (2, 1): 0, (2, 6): 0}  # (n, k) -> B
+RICCATI_TILE_MAX_B = {(4, 1): 409600, (4, 3): 6400, (6, 3): 6400,
+                      (10, 4): 6400}  # (nx, nu) -> B
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -109,15 +135,36 @@ def fused_rollout_tile_symbol(functor: str, dtype: torch.dtype) -> str:
     return "odt_fused_rollout_tile_%s_%s" % (functor, SUFFIX[dtype])
 
 
-def batched_solve_symbol(n: int, k: int, dtype: torch.dtype) -> str:
-    return "odt_batched_solve_n%d_k%d_%s" % (n, k, SUFFIX[dtype])
+def batched_solve_route(n: int, k: int, B: int) -> str:
+    """K2's kernel for a launch of B systems: ``"group"`` above
+    ``UNROLL_MAX_N`` unknowns, else ``"tile"`` up to the shape's cut in
+    ``BATCHED_SOLVE_TILE_MAX_B`` and ``"thread"`` above it."""
+    if n > UNROLL_MAX_N:
+        return "group"
+    return "tile" if B <= BATCHED_SOLVE_TILE_MAX_B[n, k] else "thread"
 
 
-def riccati_symbol(nx: int, nu: int, dtype: torch.dtype) -> str:
-    return "odt_riccati_nx%d_nu%d_%s" % (nx, nu, SUFFIX[dtype])
+def batched_solve_symbol(n: int, k: int, dtype: torch.dtype,
+                         route: str = "thread") -> str:
+    """The entry point of K2's ``route`` kernel (the per-thread and group
+    kernels share one name, picked by n at compile time)."""
+    tile = "tile_" if route == "tile" else ""
+    return "odt_batched_solve_%sn%d_k%d_%s" % (tile, n, k, SUFFIX[dtype])
 
 
-_VP, _INT = ctypes.c_void_p, ctypes.c_int
+def riccati_route(nx: int, nu: int, B: int) -> str:
+    """K3's kernel for a launch of B scenarios: ``"tile"`` up to the
+    shape's cut in ``RICCATI_TILE_MAX_B``, else ``"thread"``."""
+    return "tile" if B <= RICCATI_TILE_MAX_B[nx, nu] else "thread"
+
+
+def riccati_symbol(nx: int, nu: int, dtype: torch.dtype,
+                   route: str = "thread") -> str:
+    tile = "tile_" if route == "tile" else ""
+    return "odt_riccati_%snx%d_nu%d_%s" % (tile, nx, nu, SUFFIX[dtype])
+
+
+_VP, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # entry point -> argtypes; every pointer and the stream are c_void_p
 SIGNATURES = {
     **{fused_ip_symbol(f, dt): [_VP, _VP, _VP, _VP, _INT, _VP, _VP, _VP]
@@ -130,10 +177,14 @@ SIGNATURES = {
     **{fused_rollout_tile_symbol(f, dt): [_VP] * 11 + [_INT, _INT] + [_VP] * 4
        for w, f in FUSED_IP_TILE_MAX_B if w == "fused_rollout"
        for dt in SUFFIX},
-    **{batched_solve_symbol(n, k, dt): [_VP, _VP, _VP, _INT, _VP]
-       for n, k in BATCHED_SOLVE_SHAPES for dt in SUFFIX},
-    **{riccati_symbol(nx, nu, dt): [_VP] * 14 + [_INT, _INT, _VP]
-       for nx, nu in RICCATI_SHAPES for dt in SUFFIX},
+    **{batched_solve_symbol(n, k, dt, route): [_VP, _VP, _VP, _INT]
+       + [_I64] * 4 + [_VP]
+       for n, k in BATCHED_SOLVE_SHAPES for dt in SUFFIX
+       for route in (("thread", "tile") if n <= UNROLL_MAX_N
+                     else ("group",))},
+    **{riccati_symbol(nx, nu, dt, route): [_VP] * 14 + [_INT, _INT, _VP]
+       for nx, nu in RICCATI_SHAPES for dt in SUFFIX
+       for route in ("thread", "tile")},
     "odt_loop_overhead": [_VP, _VP, _INT, _INT, _VP],
 }
 

@@ -10,20 +10,51 @@ runs on the card for a model without a fused-IP device functor.
 
 What bounds it on an H100: the arithmetic is small (a 10x10 system with
 8 right-hand sides is ~4k flops on 260 values), so the kernel is bound by
-latency and by how its loads coalesce. Up to 16 unknowns
-(``UNROLL_MAX_N``) one thread solves a system (128-thread blocks), the
-factorisation unrolled into registers, the same per-thread QR as the
-fused IP kernels (``csrc/qr.cuh``); at 25,600 systems that fills each SM
-with under two blocks, and the thread's row-major loads of its own matrix
-do not coalesce across the warp, but it beats ``torch.linalg.solve`` at
-(10, 8) and (6, 6). Above 16 unknowns (planar push's 35x35 systems with
-13 right-hand sides) one system would be ~57k dependent operations in
-one thread's local memory, so there one 64-thread block solves a system
-(``csrc/qr_group.cuh``): the block loads A and b into shared memory with
-all its threads, coalesced, each thread owns one column of [A | b] in
-registers, and each Householder step is one owner's reflector and a
-parallel update of the other columns, in the per-thread code's order of
-arithmetic.
+latency and by how its loads coalesce. Three kernels, each running
+``qr_body.cuh``'s steps in its order:
+
+* Up to 16 unknowns (``UNROLL_MAX_N``) and up to the shape's cut in
+  ``BATCHED_SOLVE_TILE_MAX_B`` systems, a tile of threads a system (the
+  smallest power of two that holds the n + k columns of [A | b]: 32 at
+  (10, 8), 16 at (10, 1) and (6, 6)), several tiles a 128-thread block.
+  The block loads its systems' A and b into shared memory with all its
+  threads, coalesced, each thread owns one column of [A | b] in
+  registers, and each Householder step is one owner's reflector and a
+  parallel update of the other columns (``csrc/qr_group.cuh`` on a
+  ``thread_block_tile``); x goes back through shared memory the same
+  way. It runs the acrobot's (6, 6) sweeps; at (10, 8) the cut is 0
+  (``_build.py`` says why).
+* Wider launches at up to 16 unknowns, and every (10, 8) launch, run
+  the per-thread kernel (128 threads a block, the factorisation
+  unrolled into registers, the per-thread QR of the fused IP kernels,
+  ``csrc/qr.cuh``). On the sweep's row-interleaved Jacobians the warp's
+  threads read words n apart, and at 25,600 systems it takes the
+  card as long as the tile kernel.
+* Above 16 unknowns (planar push's 35x35 systems with 13 right-hand
+  sides) one system would be ~57k dependent operations in one thread's
+  local memory, so one 64-thread block solves a system with
+  ``qr_group.cuh``, staged through shared memory as the tile kernel.
+
+The tile and group kernels run the same code (``qr_solve_group``), and
+the group kernel gives the rolled per-thread QR's x bit for bit at (35,
+13). At n <= 16 the per-thread QR is unrolled into registers, and there
+nvcc sees that the reflector's entries below the pivot are the column's
+own: it rounds each of their squares once and adds it into the norms
+and the pivot column's product, where the tile kernel fuses each into
+an FMA. So the tile and per-thread kernels agree to rounding, not bit
+for bit (PERF.md section 6).
+
+Every kernel reads A and b at their own strides between systems and
+between rows (a row's entries adjacent), so the IFT Jacobians of
+``batched_jacobian``, which come interleaved row by row (strides (n,
+B n, 1)), go in as they are, with no copy on every derivative sweep;
+the tile kernel's staging walks such a layout along its rows, across
+the block's systems, so its loads still coalesce.
+
+The wrapper picks by ``_build.batched_solve_route(n, k, B)``; it counts
+every launch in ``batched_solve.launches``, the tile kernel's in
+``batched_solve.tile_launches`` too, and each launch by (kernel, B) in
+``batched_solve.widths``.
 
 The wrapper takes the plain version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises.
@@ -33,9 +64,12 @@ from __future__ import annotations
 
 import torch
 
+from collections import Counter
+
 from optimization_dynamics_tpu_torch.ops.kernels._build import (
     BATCHED_SOLVE_SHAPES,
     SUFFIX,
+    batched_solve_route,
     batched_solve_symbol,
     load_library,
 )
@@ -79,12 +113,20 @@ def batched_solve_plain(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(xs, dim=1)
 
 
+def _rows_adjacent(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where its rows' entries are adjacent, else a
+    contiguous copy: the kernels take any strides between systems and
+    between rows."""
+    return t if t.stride(2) == 1 or t.shape[2] == 1 else t.contiguous()
+
+
 def batched_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """A (B, n, n), b (B, n, k) -> x (B, n, k).
 
     CPU tensors take ``batched_solve_plain``; CUDA tensors launch the K2
-    kernel, which is compiled for the (n, k) in ``BATCHED_SOLVE_SHAPES``
-    and for float32 and float64, and raise on anything else."""
+    kernel that ``batched_solve_route`` picks, compiled for the (n, k) in
+    ``BATCHED_SOLVE_SHAPES`` and for float32 and float64, and raise on
+    anything else."""
     if A.device.type == "cpu" and b.device.type == "cpu":
         return batched_solve_plain(A, b)
     if A.device.type != "cuda" or b.device != A.device:
@@ -105,20 +147,25 @@ def batched_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                          % (n, k, sorted(BATCHED_SOLVE_SHAPES)))
     if B >= 2 ** 31:
         raise ValueError("batched_solve: batch too large for int32")
-    A = A.contiguous()
-    b = b.contiguous()
-    x = torch.empty_like(b)
+    A, b = _rows_adjacent(A), _rows_adjacent(b)
+    x = torch.empty(b.shape, dtype=b.dtype, device=b.device)
     if B == 0:
         return x
-    fn = getattr(load_library(), batched_solve_symbol(n, k, A.dtype))
+    route = batched_solve_route(n, k, B)
+    fn = getattr(load_library(), batched_solve_symbol(n, k, A.dtype, route))
     with torch.cuda.device(A.device):
         err = fn(A.data_ptr(), b.data_ptr(), x.data_ptr(), B,
+                 A.stride(0), A.stride(1), b.stride(0), b.stride(1),
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError("batched_solve kernel launch failed: CUDA error "
                            "%d" % err)
     batched_solve.launches += 1
+    batched_solve.tile_launches += route == "tile"
+    batched_solve.widths[route, B] += 1
     return x
 
 
 batched_solve.launches = 0
+batched_solve.tile_launches = 0
+batched_solve.widths = Counter()

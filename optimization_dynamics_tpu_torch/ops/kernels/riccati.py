@@ -11,13 +11,31 @@ deploy width.
 What bounds it on an H100: latency. At the deploy shape a lane reads
 about 10 KB (fx, fu and the cost expansion of 50 steps) and does about
 10 kflop, so the bytes would take microseconds at 3.35 TB/s, but the
-recursion is sequential in time and a batch of 512 lanes is 16 warps on
-a card of 132 SMs. The design gives each scenario one thread (32 per
-block, so the 16 warps spread over 16 SMs) that loops t = T-2 .. 0 with
-Vx and Vxx in registers, reads each step's inputs from device memory and
-writes that step's gains: one launch replaces the 50-step eager loop of
-``backward_xla`` and its ~25 small kernels per step. NX and NU are
-template parameters, so every contraction and the Cholesky unroll.
+recursion is sequential in time: a launch lasts as long as 50 steps of
+one scenario's dependent chain, loads included. Two kernels, picked by
+``_build.riccati_route(nx, nu, B)``:
+
+* Up to the shape's cut in ``RICCATI_TILE_MAX_B`` scenarios, a tile of
+  threads a scenario (an element of the nx x nx updates a thread, up to
+  a warp: 16 at the deploy's nx=4, 32 at nx=6 and 10), 64-thread
+  blocks. The scenario's Vx and Vxx, the step's inputs and its
+  intermediates sit in the tile's slab of shared memory; each step is
+  three stages with a tile sync after each: VF = Vxx fx, Vxx fu (an
+  element a thread), Qx and Qu; then Qxx (an element a thread), Quu and
+  its Cholesky on every thread alike (nu <= 4), and the gains a column a
+  thread; then the symmetrised Vxx (an element a thread). The next step's inputs are loaded into registers while the
+  step computes (neighbouring threads, neighbouring words) and stored to
+  the slab at its end, so the loads leave the dependent chain. One
+  thread a scenario, the alternative, puts 512 scenarios on 16 warps of
+  16 SMs, each thread waiting out its own uncoalesced loads and the
+  whole step's chain.
+* Wider launches run that per-thread kernel (32 threads a block, Vx and
+  Vxx in registers; NX and NU are template parameters, so every
+  contraction and the Cholesky unroll).
+
+Either replaces the 50-step eager loop of ``backward_xla`` and its ~25
+small kernels per step with one launch, and both compute every value by
+the same expression in the same order, so they agree bit for bit.
 
 Semantics are the Pallas kernel's, not ``backward_xla``'s: ``ok`` is
 "every Cholesky pivot d > 0", pivots are ``sqrt(max(d, 1e-30))``, and
@@ -35,6 +53,7 @@ or raises.
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Callable
 
 import torch
@@ -43,6 +62,7 @@ from optimization_dynamics_tpu_torch.ops.kernels._build import (
     RICCATI_SHAPES,
     SUFFIX,
     load_library,
+    riccati_route,
     riccati_symbol,
 )
 
@@ -144,9 +164,12 @@ def riccati_backward_plain(fxs, fus, lxs, lus, lxxs, luus, luxs, gTs, HTs,
 def riccati_backward(fxs, fus, lxs, lus, lxxs, luus, luxs, gTs, HTs, regs,
                      u_mask):
     """The K3 wrapper; ``u_mask`` (T-1, nu), nonzero = active. CPU tensors
-    run ``riccati_backward_plain``; CUDA tensors launch the kernel
-    compiled for their (nx, nu) in ``RICCATI_SHAPES`` (float32 or
-    float64) and raise on anything else."""
+    run ``riccati_backward_plain``; CUDA tensors launch the kernel that
+    ``riccati_route`` picks, compiled for their (nx, nu) in
+    ``RICCATI_SHAPES`` (float32 or float64), and raise on anything else.
+    Launches are counted in ``riccati_backward.launches``, the tile
+    kernel's in ``.tile_launches`` too, and by (kernel, B) in
+    ``.widths``."""
     ins = (fxs, fus, lxs, lus, lxxs, luus, luxs, gTs, HTs, regs)
     if all(a.device.type == "cpu" for a in ins + (u_mask,)):
         return riccati_backward_plain(*ins, u_mask)
@@ -179,7 +202,8 @@ def riccati_backward(fxs, fus, lxs, lus, lxxs, luus, luxs, gTs, HTs, regs,
     ks = torch.empty((B, Tm1, nu), dtype=dtype, device=dev)
     stats = torch.empty((B, 4), dtype=dtype, device=dev)
     if B > 0 and Tm1 > 0:
-        fn = getattr(load_library(), riccati_symbol(nx, nu, dtype))
+        route = riccati_route(nx, nu, B)
+        fn = getattr(load_library(), riccati_symbol(nx, nu, dtype, route))
         with torch.cuda.device(dev):
             err = fn(*(a.data_ptr() for a in ins), mask.data_ptr(),
                      Ks.data_ptr(), ks.data_ptr(), stats.data_ptr(), B, Tm1,
@@ -188,10 +212,14 @@ def riccati_backward(fxs, fus, lxs, lus, lxxs, luus, luxs, gTs, HTs, regs,
             raise RuntimeError("riccati kernel launch failed: CUDA error "
                                "%d" % err)
         riccati_backward.launches += 1
+        riccati_backward.tile_launches += route == "tile"
+        riccati_backward.widths[route, B] += 1
     return Ks, ks, stats[:, 0], stats[:, 1], stats[:, 2], stats[:, 3] > 0.5
 
 
 riccati_backward.launches = 0
+riccati_backward.tile_launches = 0
+riccati_backward.widths = Counter()
 
 
 def make_riccati_backward(T: int, nx: int, nu: int, u_mask, device,

@@ -6,16 +6,28 @@ inputs, so two checkouts that both have this module time the same work:
 * ``nvidia_smi``: the card's name and power limit, as
   ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
   prints them;
-* ``cuda_ms``: the median of CUDA-event times of a call;
+* ``cuda_ms``: the median of CUDA-event times of a call, host work
+  between the events included;
+* ``device_ms``: the card's own time a call, calls queued back to back
+  behind a spin kernel so that no host time falls between the events;
+  ``launch_ms``: an empty kernel's, both ways;
 * ``kernel_route``, ``routed``: every K1 and K4 launch of a functor sent
   to its narrow kernel (tile, or K1n's group) or to its per-thread
-  kernel, for a block of code or a call;
+  kernel, for a block of code or a call; ``cut_routed``: the same for a
+  wrapper with its own cut table (K2's ``BATCHED_SOLVE_TILE_MAX_B``,
+  K3's ``RICCATI_TILE_MAX_B``);
 * ``rel_residual``: the relative residual of batched solves;
+  ``ift_systems``: the IFT systems of a derivative sweep at a fused IP
+  solve's solutions, laid out as the sweep passes them;
+  ``interleave_rows``: tensors laid out so;
 * ``envelope_batch``, ``warm_batch``: cold cartpole-friction IP solves
   over the swing-up envelope, and their warm starts one iterate earlier
   (the derivative sweep's);
 * ``push_batch``: cold planar-push IP solves around the nominal pose;
-* ``rollout_batch``: K4's inputs at the cartpole deploy's shapes.
+* ``rollout_batch``: K4's inputs at the cartpole deploy's shapes;
+* ``lqr_batch``: K3's inputs, random LQR data;
+* ``grow_batch``: a batch repeated to a wider width (a cut's far side,
+  a width sweep).
 
 Every input comes from a numpy seed.
 """
@@ -28,9 +40,11 @@ import subprocess
 import numpy as np
 import torch
 
-__all__ = ["nvidia_smi", "cuda_ms", "kernel_route", "routed",
-           "rel_residual", "envelope_batch", "warm_batch", "push_batch",
-           "rollout_batch"]
+__all__ = ["nvidia_smi", "cuda_ms", "device_ms", "launch_ms",
+           "kernel_route", "routed", "cut_routed", "rel_residual",
+           "ift_systems", "interleave_rows", "envelope_batch",
+           "warm_batch", "push_batch", "rollout_batch", "lqr_batch",
+           "grow_batch"]
 
 
 def nvidia_smi() -> str:
@@ -55,6 +69,42 @@ def cuda_ms(fn, reps: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Milliseconds a call of ``fn()`` keeps the card busy: ``reps`` calls
+    queued behind a spin kernel (``torch.cuda._sleep``), then timed by
+    CUDA events around them, so the host's time between calls falls
+    while the card still spins and the events time the card's work back
+    to back. A spin that ends before the host has queued every call is
+    doubled, up to four times; then it raises."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()      # the card was still spinning
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps
+        cycles *= 2
+    raise RuntimeError("device_ms: the host did not queue %d calls within "
+                       "the spin" % reps)
+
+
+def launch_ms() -> dict:
+    """An empty kernel (a spin of 0 cycles, one thread): ``ms_device``,
+    its time on the card between kernels queued back to back, and
+    ``ms``, one launch timed as ``cuda_ms`` times a wrapper's call."""
+    empty = lambda: torch.cuda._sleep(0)
+    return dict(ms_device=device_ms(empty, reps=200),
+                ms=cuda_ms(empty, reps=20))
 
 
 @contextlib.contextmanager
@@ -84,6 +134,20 @@ def routed(functor: str, tile: bool, fn):
     return call
 
 
+def cut_routed(table: dict, key, tile: bool, fn):
+    """``fn`` with the cut ``table[key]`` set for the call: every launch of
+    that wrapper and shape runs its tile kernel (``tile``) or its
+    per-thread kernel, whatever its width."""
+    def call(*args, **kwargs):
+        old = table[key]
+        table[key] = 2 ** 31 - 1 if tile else 0
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            table[key] = old
+    return call
+
+
 def rel_residual(A, x, b) -> float:
     """max over systems of |A x - b|_inf / (|A|_inf |x|_inf + |b|_inf),
     evaluated in float64."""
@@ -92,6 +156,26 @@ def rel_residual(A, x, b) -> float:
     scale = (A.abs().sum(dim=2).amax(dim=1) * x.abs().amax(dim=(1, 2))
              + b.abs().amax(dim=(1, 2)))
     return float((r / scale).max())
+
+
+def ift_systems(solve, model, z0s, ths):
+    """The IFT systems of a derivative sweep at ``solve``'s solutions of
+    (z0s, ths): dr/dz (B, nz, nz) and dr/dtheta (B, nz, ntheta) as
+    ``batched_jacobian`` gives them to the sweep's solve, row r of every
+    system before row r + 1."""
+    from optimization_dynamics_tpu_torch.solver.interior_point import (
+        batched_jacobian)
+
+    zs = solve(z0s, ths).z
+    return (batched_jacobian(model.residual, 0)(zs, ths),
+            batched_jacobian(model.residual, 1)(zs, ths))
+
+
+def interleave_rows(ts):
+    """Each (B, n, m) tensor laid out as ``batched_jacobian`` gives its
+    Jacobians: row r of every system before row r + 1, strides (m, B m,
+    1)."""
+    return [t.transpose(0, 1).contiguous().transpose(0, 1) for t in ts]
 
 
 def envelope_batch(B: int, seed: int, device, dtype):
@@ -163,3 +247,30 @@ def rollout_batch(B: int, seed: int, device, dtype):
     kss = t(0.2 * rng.standard_normal((B, T - 1, ex.NU)))
     alphas = t(0.5 ** (np.arange(B) % 8))
     return x0s, uss, Kss, kss, alphas
+
+
+def lqr_batch(seed: int, B: int, T: int, nx: int, nu: int, device, dtype):
+    """Random LQR data (fxs, fus, lxs, lus, lxxs, luus, luxs, gTs, HTs,
+    regs) from a numpy seed, drawn as the reference's Riccati kernel test
+    draws it."""
+    rng = np.random.default_rng(seed)
+    n = lambda *s: rng.standard_normal(s)
+
+    def spd(m):
+        A = n(B, T - 1, m, m)
+        return np.einsum("btij,btkj->btik", A, A) + 0.5 * np.eye(m)
+
+    A = n(B, nx, nx)
+    data = [0.5 * n(B, T - 1, nx, nx), 0.5 * n(B, T - 1, nx, nu),
+            n(B, T - 1, nx), n(B, T - 1, nu), spd(nx), spd(nu),
+            0.3 * n(B, T - 1, nu, nx), n(B, nx),
+            np.einsum("bij,bkj->bik", A, A) + np.eye(nx), np.full(B, 1e-6)]
+    return [torch.as_tensor(a, dtype=dtype, device=device) for a in data]
+
+
+def grow_batch(ts, B: int):
+    """The tensors' first B lanes, their batch repeated as often as
+    needed."""
+    reps = -(-B // ts[0].shape[0])
+    return [t.repeat((reps,) + (1,) * (t.ndim - 1))[:B].contiguous()
+            for t in ts]

@@ -6,7 +6,11 @@ wrappers call (``_build.SIGNATURES``) is instantiated by exactly one line
 of ``csrc/*.cu``, that the functors given the narrow kernels (K1's and
 K4's tiles, K1n's 64-thread group) fit them, that the library's name
 follows its sources, that ``ptxas_report`` reads a ``-Xptxas -v`` log,
-and that the K1 and K4 wrappers run their plain versions on CPU tensors.
+that K2's and K3's tile kernels fit their tiles and have a cut for every
+shape they serve, that those wrappers pick their kernel by width
+(``_build.batched_solve_route``, ``riccati_route``, which need no
+library), and that the K1, K2, K3 and K4 wrappers run their plain
+versions on CPU tensors.
 """
 
 import re
@@ -32,8 +36,12 @@ def _instantiated_symbols():
             a[0], a[2]),
         "ODT_BATCHED_SOLVE": lambda a: "odt_batched_solve_n%s_k%s_%s" % (
             a[0], a[1], a[2]),
+        "ODT_BATCHED_SOLVE_TILE": lambda a: (
+            "odt_batched_solve_tile_n%s_k%s_%s" % (a[0], a[1], a[2])),
         "ODT_RICCATI": lambda a: "odt_riccati_nx%s_nu%s_%s" % (a[0], a[1],
                                                                a[2]),
+        "ODT_RICCATI_TILE": lambda a: "odt_riccati_tile_nx%s_nu%s_%s" % (
+            a[0], a[1], a[2]),
     }
     out = []
     for src in sorted(_build.CSRC.glob("*.cu")):
@@ -99,6 +107,117 @@ def test_tile_functors_fit_a_tile():
         "odt_fused_ip_tile_cartpole_friction_f64"
     assert {("fused_rollout", f) for f in _build.FUSED_ROLLOUT_FUNCTORS} \
         <= set(_build.FUSED_IP_TILE_MAX_B)
+
+
+def _small_solve_shapes():
+    return sorted((n, k) for n, k in _build.BATCHED_SOLVE_SHAPES
+                  if n <= _build.UNROLL_MAX_N)
+
+
+def test_tile_cut_tables_cover_every_shape():
+    """K3's cut table has every RICCATI_SHAPES entry and K2's every
+    BATCHED_SOLVE_SHAPES entry with n <= UNROLL_MAX_N (above it the group
+    kernel runs every width); each cut is a batch the int32 launch takes,
+    and a shape that was not swept takes a cut no wider than the swept
+    ones (K3: (4, 1); K2: (10, 8) and (6, 6))."""
+    text = (_build.CSRC / "odt_common.cuh").read_text()
+    assert int(re.search(r"constexpr int UNROLL_MAX_N = (\d+);",
+                         text)[1]) == _build.UNROLL_MAX_N
+    assert set(_build.RICCATI_TILE_MAX_B) == set(_build.RICCATI_SHAPES)
+    assert set(_build.BATCHED_SOLVE_TILE_MAX_B) == set(_small_solve_shapes())
+    for table in (_build.RICCATI_TILE_MAX_B, _build.BATCHED_SOLVE_TILE_MAX_B):
+        assert all(isinstance(b, int) and 0 <= b < 2 ** 31
+                   for b in table.values())
+    k3, k2 = _build.RICCATI_TILE_MAX_B, _build.BATCHED_SOLVE_TILE_MAX_B
+    assert all(b <= k3[4, 1] for b in k3.values())
+    swept = min(k2[10, 8], k2[6, 6])
+    assert k2[10, 1] <= k2[10, 8]
+    assert k2[2, 1] <= swept and k2[2, 6] <= swept
+
+
+def _pow2_at_least(n):
+    return 1 << (n - 1).bit_length()
+
+
+def test_k2_k3_tile_widths_fit():
+    """K2's tile holds the n + k columns of [A | b] (the smallest power of
+    two >= n + k, ``solve_tile_width``) and K3's the nx columns of the
+    gains (an element of the nx x nx updates a thread, capped at a warp,
+    ``riccati_tile_width``), each within a warp and whole to a block: N +
+    K <= W <= 32 and NX <= W <= 32, powers of two."""
+    solve = (_build.CSRC / "batched_solve.cu").read_text()
+    assert re.search(r"while \(w < N \+ K\) w \*= 2;", solve)
+    sblock = int(re.search(r"constexpr int SOLVE_TILE_BLOCK = (\d+);",
+                           solve)[1])
+    ric = (_build.CSRC / "riccati.cu").read_text()
+    assert re.search(r"while \(w < NX \* NX && w < 32\) w \*= 2;", ric)
+    rblock = int(re.search(r"constexpr int RICCATI_TILE_BLOCK = (\d+);",
+                           ric)[1])
+    widths = {}
+    for n, k in _small_solve_shapes():
+        w = _pow2_at_least(n + k)
+        assert n + k <= w <= 32 and w & (w - 1) == 0 and sblock % w == 0
+        assert w < 2 * (n + k)
+        widths[n, k] = w
+    assert widths == {(2, 1): 4, (2, 6): 8, (6, 6): 16, (10, 1): 16,
+                      (10, 8): 32}
+    widths = {}
+    for nx, nu in _build.RICCATI_SHAPES:
+        w = min(32, _pow2_at_least(nx * nx))
+        assert nx <= w <= 32 and w & (w - 1) == 0 and rblock % w == 0
+        assert nu <= 4
+        widths[nx] = w
+    assert widths == {4: 16, 6: 32, 10: 32}
+
+
+@pytest.mark.parametrize("kind", ["batched_solve", "riccati"])
+def test_tile_entry_points_declared_and_instantiated_once(kind):
+    """Each of the new tile kernels' float32 and float64 entry points is in
+    SIGNATURES with its per-thread kernel's argument types and is
+    instantiated by one line of csrc/."""
+    instantiated = _instantiated_symbols()
+    if kind == "riccati":
+        shapes, symbol = _build.RICCATI_SHAPES, _build.riccati_symbol
+    else:
+        shapes, symbol = _small_solve_shapes(), _build.batched_solve_symbol
+    for a, b in shapes:
+        for dt in (torch.float32, torch.float64):
+            tile = symbol(a, b, dt, "tile")
+            assert "_tile_" in tile and tile in _build.SIGNATURES
+            assert instantiated.count(tile) == 1
+            assert _build.SIGNATURES[tile] == _build.SIGNATURES[
+                symbol(a, b, dt)]
+
+
+@pytest.mark.parametrize("kind,shape", [
+    ("riccati", s) for s in sorted(_build.RICCATI_SHAPES)] + [
+    ("batched_solve", s) for s in sorted(_build.BATCHED_SOLVE_SHAPES)])
+def test_k2_k3_route_by_width(kind, shape, monkeypatch):
+    """The wrappers' choice of kernel is a pure function of the shape and
+    B: the tile kernel up to the shape's cut, the per-thread kernel past
+    it, K2's group kernel above UNROLL_MAX_N at any width; the symbol
+    names the route."""
+    if kind == "riccati":
+        table, route, symbol = (_build.RICCATI_TILE_MAX_B,
+                                _build.riccati_route, _build.riccati_symbol)
+    else:
+        table, route, symbol = (_build.BATCHED_SOLVE_TILE_MAX_B,
+                                _build.batched_solve_route,
+                                _build.batched_solve_symbol)
+    if shape in table:
+        monkeypatch.setitem(table, shape, 100)
+        picks = [route(*shape, B) for B in (1, 99, 100, 101, 25600)]
+        assert picks == ["tile"] * 3 + ["thread"] * 2
+        monkeypatch.setitem(table, shape, 0)
+        assert route(*shape, 1) == "thread"
+    else:
+        assert kind == "batched_solve" and shape[0] > _build.UNROLL_MAX_N
+        assert {route(*shape, B) for B in (1, 6400, 2 ** 31 - 1)} == {
+            "group"}
+    for r in {route(*shape, B) for B in (1, 2 ** 31 - 1)}:
+        name = symbol(*shape, torch.float64, r)
+        assert name in _build.SIGNATURES
+        assert ("_tile_" in name) == (r == "tile")
 
 
 def test_library_is_named_by_its_sources(tmp_path, monkeypatch):
@@ -230,3 +349,76 @@ def test_fused_rollout_wrapper_runs_plain_on_cpu_at_any_width(dtype,
         assert dict(fused_rollout.widths) == widths
         for g, r in zip(got, ref):
             assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k2_k3_wrappers_run_plain_on_cpu_at_any_width(dtype, monkeypatch):
+    """On CPU tensors the K2 and K3 wrappers run their plain versions
+    whatever the width, below, at and above a cut set to 2, and count no
+    launch of either kernel."""
+    from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
+        batched_solve, batched_solve_plain)
+    from optimization_dynamics_tpu_torch.ops.kernels.riccati import (
+        riccati_backward, riccati_backward_plain)
+    from optimization_dynamics_tpu_torch.utils.measure import lqr_batch
+
+    monkeypatch.setitem(_build.BATCHED_SOLVE_TILE_MAX_B, (10, 8), 2)
+    monkeypatch.setitem(_build.RICCATI_TILE_MAX_B, (4, 1), 2)
+    rng = np.random.default_rng(8)
+    A = torch.as_tensor(rng.standard_normal((3, 10, 10)) + 6 * np.eye(10),
+                        dtype=dtype)
+    b = torch.as_tensor(rng.standard_normal((3, 10, 8)), dtype=dtype)
+    data = lqr_batch(9, 3, 5, 4, 1, torch.device("cpu"), dtype)
+    mask = torch.ones((4, 1), dtype=dtype)
+    for B in (1, 2, 3):
+        counts = [(w.launches, w.tile_launches, dict(w.widths))
+                  for w in (batched_solve, riccati_backward)]
+        assert torch.equal(batched_solve(A[:B], b[:B]),
+                           batched_solve_plain(A[:B], b[:B]))
+        got = riccati_backward(*(a[:B] for a in data), mask)
+        ref = riccati_backward_plain(*(a[:B] for a in data), mask)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+        assert counts == [(w.launches, w.tile_launches, dict(w.widths))
+                          for w in (batched_solve, riccati_backward)]
+
+
+@pytest.mark.parametrize("layout,copied", [
+    ("contiguous", False), ("interleaved", False), ("one_column", False),
+    ("columns_strided", True)])
+def test_k2_wrapper_passes_row_strided_inputs_uncopied(layout, copied):
+    """K2's kernels read any strides between systems and between rows, so
+    the wrapper hands them a tensor whose rows' entries are adjacent as it
+    is (the IFT Jacobians, interleaved row by row; a one-column slice of
+    them) and copies only one whose columns are strided."""
+    from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
+        _rows_adjacent)
+    from optimization_dynamics_tpu_torch.utils.measure import (
+        interleave_rows)
+
+    t = torch.arange(5 * 4 * 3, dtype=torch.float64).reshape(5, 4, 3)
+    t = {"contiguous": t, "interleaved": interleave_rows([t])[0],
+         "one_column": interleave_rows([t])[0][:, :, 1:2],
+         "columns_strided": t.transpose(1, 2)}[layout]
+    got = _rows_adjacent(t)
+    assert torch.equal(got, t)
+    assert (got is not t) == copied
+    if copied:
+        assert got.is_contiguous()
+
+
+def test_interleave_rows_is_the_ift_jacobians_layout():
+    """``interleave_rows`` lays a batch out as ``batched_jacobian`` gives
+    the derivative sweep its Jacobians: strides (m, B m, 1)."""
+    from optimization_dynamics_tpu_torch.solver.interior_point import (
+        batched_jacobian)
+    from optimization_dynamics_tpu_torch.utils.measure import (
+        interleave_rows)
+
+    model, _, z0s, ths = _cpu_ip_batch("cartpole_friction", torch.float64)
+    for argnum in (0, 1):
+        jac = batched_jacobian(model.residual, argnum)(z0s, ths)
+        mine = interleave_rows([jac.contiguous()])[0]
+        assert torch.equal(mine, jac)
+        assert mine.stride() == jac.stride()
+        B, _, m = jac.shape
+        assert jac.stride() == (m, B * m, 1)

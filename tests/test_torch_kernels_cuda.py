@@ -40,7 +40,17 @@ per-thread kernel, each forced by the wrapper's width cut, as K1n at
 the main path's widths (512 cold, 6,400 warm), on ragged batches, with
 line searches that pick past the first candidate (one and two chunks of
 warp 0), and against each other: the two run the same arithmetic in the
-same order, so they agree bit for bit.
+same order, so they agree bit for bit. K2's tile kernel at n <= 16 (a
+tile of threads a system) and K3's tile kernel (a tile of threads a
+scenario) as their per-thread kernels against the plain versions, each
+forced by the wrapper's cut, on ragged batches and around the cut; K3's
+with an indefinite Quu and a ragged ``u_mask`` too. K3's tile kernel
+runs its per-thread kernel's expressions in the same order, so in
+float64 the two are compared bit for bit. K2's do not agree bit for bit:
+nvcc computes some of the per-thread kernel's squares once and adds them
+where the tile kernel fuses each into an FMA (PERF.md section 6), so in
+float64 the two are held within 1e-10 of each other, relative, as each
+is to the plain version.
 """
 
 import numpy as np
@@ -55,7 +65,11 @@ from optimization_dynamics_tpu_torch.examples import planar_push as push_ex
 from optimization_dynamics_tpu_torch.models import cartpole
 from optimization_dynamics_tpu_torch.models import planar_push
 from optimization_dynamics_tpu_torch.ops.kernels._build import (
+    BATCHED_SOLVE_SHAPES,
+    BATCHED_SOLVE_TILE_MAX_B,
     FUSED_IP_TILE_MAX_B,
+    RICCATI_TILE_MAX_B,
+    UNROLL_MAX_N,
 )
 from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
     batched_solve,
@@ -82,6 +96,9 @@ from optimization_dynamics_tpu_torch.ops.kernels.riccati import (
 )
 from optimization_dynamics_tpu_torch.solver.interior_point import IPOptions
 from optimization_dynamics_tpu_torch.utils.measure import (
+    cut_routed,
+    grow_batch,
+    interleave_rows,
     push_batch,
     rel_residual,
     rollout_batch,
@@ -894,3 +911,219 @@ def test_loop_overhead_wrapper_raises_on_unsupported_input(card):
                                   device=card), "plain")
     with pytest.raises(ValueError):
         loop_overhead(torch.zeros((10, 128), device=card), "unrolled")
+
+
+def _small_system(B, n, k, seed, device, dtype):
+    rng = np.random.default_rng(seed)
+    A = torch.as_tensor(rng.standard_normal((B, n, n)) + 2.0 * n * np.eye(n),
+                        dtype=dtype, device=device)
+    b = torch.as_tensor(rng.standard_normal((B, n, k)), dtype=dtype,
+                        device=device)
+    return A, b
+
+
+def _rel(x, ref):
+    return float((x - ref).abs().amax() / ref.abs().amax())
+
+
+def _solve_routes(A, b):
+    """x from K2's tile and per-thread kernels, each forced by the cut."""
+    key = (A.shape[1], b.shape[2])
+    out = {}
+    for route in ("tile", "thread"):
+        tiles = batched_solve.tile_launches
+        out[route] = cut_routed(BATCHED_SOLVE_TILE_MAX_B, key,
+                                route == "tile", batched_solve)(A, b)
+        assert batched_solve.tile_launches == tiles + (route == "tile")
+    return out
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.float64, 1e-10)])
+@pytest.mark.parametrize("shape", sorted(s for s in BATCHED_SOLVE_SHAPES
+                                         if s[0] <= UNROLL_MAX_N))
+def test_batched_solve_tile_kernel_matches_plain(card, dtype, tol, shape):
+    """K2's tile and per-thread kernels against the plain version and
+    against each other at every shape they serve."""
+    A, b = _small_system(1000, *shape, 30, card, dtype)
+    xs = _solve_routes(A, b)
+    xp = batched_solve_plain(A, b)
+    for route in ("tile", "thread"):
+        assert _rel(xs[route], xp) <= tol
+    assert _rel(xs["tile"], xs["thread"]) <= tol
+
+
+@pytest.mark.parametrize("B", [1, 3, 5, 4093])
+def test_batched_solve_tile_kernel_ragged_batch(card, B):
+    """Batches that are not a whole number of tiles a block (4 at (10, 8),
+    8 at (6, 6)): every system solved, float64 relative residual <= 1e-12,
+    x within 1e-10 of the per-thread kernel's, relative."""
+    for shape in ((10, 8), (6, 6)):
+        A, b = _small_system(B, *shape, 31 + B, card, torch.float64)
+        xs = _solve_routes(A, b)
+        assert tuple(xs["tile"].shape) == (B,) + (shape[0], shape[1])
+        assert rel_residual(A, xs["tile"], b) <= 1e-12
+        assert _rel(xs["tile"], xs["thread"]) <= 1e-10
+
+
+def test_batched_solve_tile_kernel_saddle_systems(card):
+    """KKT-like [[H, C^T], [C, 0]] systems at (10, 8), zeros on the
+    diagonal: the tile kernel's float64 relative residual <= 1e-12, x
+    within 1e-10 of the per-thread kernel's, relative."""
+    rng = np.random.default_rng(33)
+    B, m = 500, 5
+    A = np.zeros((B, 2 * m, 2 * m))
+    H = rng.standard_normal((B, m, m))
+    A[:, :m, :m] = H @ H.transpose(0, 2, 1) + 0.5 * np.eye(m)
+    C = rng.standard_normal((B, m, m))
+    A[:, :m, m:] = C.transpose(0, 2, 1)
+    A[:, m:, :m] = C
+    At = torch.as_tensor(A, device=card)
+    bt = torch.as_tensor(rng.standard_normal((B, 2 * m, 8)), device=card)
+    xs = _solve_routes(At, bt)
+    assert rel_residual(At, xs["tile"], bt) <= 1e-12
+    assert _rel(xs["tile"], xs["thread"]) <= 1e-10
+
+
+@pytest.mark.parametrize("shape", [(10, 8), (6, 6)])
+def test_batched_solve_kernels_route_by_width(card, shape):
+    """Up to the shape's cut in BATCHED_SOLVE_TILE_MAX_B the tile kernel
+    runs, one system past it the per-thread kernel, each counted in
+    ``widths`` under its kernel and width; the shared systems' x within
+    1e-10 of each other, relative. A cut of 0 sends every width to the
+    per-thread kernel: one system, and 64."""
+    limit = BATCHED_SOLVE_TILE_MAX_B[shape]
+    sides = (((limit, "tile"), (limit + 1, "thread")) if limit > 0
+             else ((1, "thread"), (64, "thread")))
+    A, b = grow_batch(_small_system(64, *shape, 34, card, torch.float64),
+                      sides[1][0])
+    xs = {}
+    for B, route in sides:
+        launches = batched_solve.launches
+        width = batched_solve.widths[route, B]
+        xs[B] = batched_solve(A[:B], b[:B])
+        assert batched_solve.launches == launches + 1
+        assert batched_solve.widths[route, B] == width + 1
+    (n0, _), (n1, _) = sides
+    assert _rel(xs[n0], xs[n1][:n0]) <= 1e-10
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", sorted(BATCHED_SOLVE_SHAPES))
+def test_batched_solve_kernels_read_strides(card, dtype, shape):
+    """Each K2 kernel (tile and per-thread at up to 16 unknowns, the group
+    kernel above) reads A and b where they lie: x is bit for bit the same
+    from contiguous systems, from systems interleaved row by row as
+    ``batched_jacobian`` gives them, and from a slice of such (a storage
+    offset; the row stride is the wider batch's); 133 systems, not a
+    whole number of tiles a block; relative residual <= 1e-12 in float64,
+    1e-5 in float32."""
+    n, k = shape
+    A, b = _small_system(135, n, k, 35, card, dtype)
+    wide = interleave_rows([A, b])
+    layouts = {"contiguous": (A[1:134].contiguous(), b[1:134].contiguous()),
+               "interleaved": tuple(interleave_rows([A[1:134], b[1:134]])),
+               "interleaved_slice": (wide[0][1:134], wide[1][1:134])}
+    routes = ("tile", "thread") if n <= UNROLL_MAX_N else ("group",)
+    for route in routes:
+        run = batched_solve if route == "group" else cut_routed(
+            BATCHED_SOLVE_TILE_MAX_B, shape, route == "tile", batched_solve)
+        xs = {name: run(*ab) for name, ab in layouts.items()}
+        for name, x in xs.items():
+            assert x.is_contiguous() and tuple(x.shape) == (133, n, k)
+            assert torch.equal(x, xs["contiguous"]), (route, name)
+        Ac, bc = layouts["contiguous"]
+        assert rel_residual(Ac, xs["contiguous"], bc) <= (
+            1e-12 if dtype == torch.float64 else 1e-5)
+
+
+def _riccati_routes(data, mask, nx, nu):
+    """K3's tile and per-thread kernels, each forced by the cut."""
+    out = {}
+    for route in ("tile", "thread"):
+        tiles = riccati_backward.tile_launches
+        out[route] = cut_routed(RICCATI_TILE_MAX_B, (nx, nu),
+                                route == "tile", riccati_backward)(*data,
+                                                                   mask)
+        assert riccati_backward.tile_launches == tiles + (route == "tile")
+    return out
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("nx,nu,T,ragged", [(4, 1, 51, False),
+                                            (4, 3, 6, True),
+                                            (6, 3, 7, True),
+                                            (10, 4, 5, False)])
+def test_riccati_tile_kernel_matches_plain(card, dtype, tol, nx, nu, T,
+                                           ragged):
+    """K3's tile and per-thread kernels against the plain version at every
+    shape, all controls active or a ragged ``u_mask`` (masked gains
+    exactly 0); in float64 the two kernels agree bit for bit."""
+    data = _rand_lqr(16, 100, T, nx, nu, card, dtype)
+    mask = torch.ones((T - 1, nu), dtype=dtype, device=card)
+    if ragged:
+        mask[:, nu - 1] = 0
+        mask[0, 0] = 0
+    got = _riccati_routes(data, mask, nx, nu)
+    ref = riccati_backward_plain(*data, mask)
+    for g in got.values():
+        assert _riccati_rel(g, ref) <= tol
+        assert torch.equal(g[5], ref[5]) and bool(g[5].all())
+        if ragged:
+            assert (g[0][:, :, nu - 1] == 0).all()
+            assert (g[1][:, 0, 0] == 0).all()
+    if dtype == torch.float64:
+        assert all(torch.equal(a, b) for a, b in zip(got["tile"],
+                                                     got["thread"]))
+
+
+def test_riccati_tile_kernel_flags_indefinite(card):
+    """A Quu that is not positive definite at t=0 clears the tile kernel's
+    ``ok`` on its lane only; the gains stay finite and equal the per-thread
+    kernel's bit for bit."""
+    nx, nu, T = 4, 3, 6
+    data = _rand_lqr(17, 8, T, nx, nu, card, torch.float64)
+    data[5][3, 0] = -5.0 * torch.eye(nu, dtype=torch.float64)
+    mask = torch.ones((T - 1, nu), dtype=torch.float64, device=card)
+    got = _riccati_routes(data, mask, nx, nu)
+    ref = riccati_backward_plain(*data, mask)
+    assert got["tile"][5].tolist() == [True] * 3 + [False] + [True] * 4
+    assert bool(torch.isfinite(got["tile"][0]).all()
+                & torch.isfinite(got["tile"][1]).all())
+    assert _riccati_rel(got["tile"], ref) <= 1e-10
+    assert all(torch.equal(a, b) for a, b in zip(got["tile"],
+                                                 got["thread"]))
+
+
+@pytest.mark.parametrize("B", [1, 3, 17, 509])
+def test_riccati_tile_kernel_ragged_batch(card, B):
+    """Batches that are not a whole number of tiles a block (4 at nx=4,
+    2 at nx=10): every lane as the per-thread kernel's, bit for bit."""
+    for nx, nu, T in ((4, 1, 51), (10, 4, 4)):
+        data = _rand_lqr(18 + B, B, T, nx, nu, card, torch.float64)
+        mask = torch.ones((T - 1, nu), dtype=torch.float64, device=card)
+        got = _riccati_routes(data, mask, nx, nu)
+        assert tuple(got["tile"][0].shape) == (B, T - 1, nu, nx)
+        assert bool(got["tile"][5].all())
+        assert all(torch.equal(a, b) for a, b in zip(got["tile"],
+                                                     got["thread"]))
+
+
+def test_riccati_kernels_route_by_width(card):
+    """Up to RICCATI_TILE_MAX_B[(4, 1)] lanes the tile kernel runs, one
+    lane past it the per-thread kernel, each counted in ``widths``; the
+    shared lanes' outputs agree bit for bit."""
+    limit = RICCATI_TILE_MAX_B[4, 1]
+    data = grow_batch(_rand_lqr(19, 64, 3, 4, 1, card, torch.float64),
+                      limit + 1)
+    mask = torch.ones((2, 1), dtype=torch.float64, device=card)
+    got = {}
+    for B, route in ((limit, "tile"), (limit + 1, "thread")):
+        launches = riccati_backward.launches
+        width = riccati_backward.widths[route, B]
+        got[B] = riccati_backward(*(a[:B] for a in data), mask)
+        assert riccati_backward.launches == launches + 1
+        assert riccati_backward.widths[route, B] == width + 1
+    assert all(torch.equal(a, b[:limit]) for a, b in zip(got[limit],
+                                                         got[limit + 1]))

@@ -1,5 +1,5 @@
-"""Time the port's fused IP and rollout kernels (K1, K1a, K1n, K4) and K2
-at (35, 13) on the card, to compare two checkouts in one call, and each
+"""Time the port's kernels on the card (K1, K1a, K1n, K4, K2 at (35, 13),
+(10, 8) and (6, 6), K3), to compare two checkouts in one call, and each
 two-kernel pair's narrow kernel (tile or group) against its per-thread
 kernel by width.
 
@@ -8,6 +8,7 @@ Run on a machine with one CUDA card:
     python tools/kernel_times.py [--root DIR]
                                  [--model cartpole|acrobot|planar_push]
                                  [--widths 1600,6400]
+                                 [--linalg-widths 512,25600,102400]
 
 ``--root`` is the checkout whose ``optimization_dynamics_tpu_torch`` is
 imported (default: the one this script sits in). The inputs come from
@@ -29,17 +30,39 @@ Through the wrapper's own choice of kernel, float32:
   and 6,400 warm, at the push deploy IP options (phase 7's inputs);
 * K4 (cartpole) at 1,024 scenarios, T=51, every control active
   (``rollout_batch``, seed 20: phase 5's inputs);
-* K2 on the 6,400 (35, 13) IFT systems at K1n's cold solutions, beside
-  ``torch.linalg.solve`` on them.
+* K2 on the 6,400 (35, 13) IFT systems at K1n's cold solutions, on the
+  25,600 (10, 8) IFT systems at K1's cold solutions of envelope seed 2
+  (phase 2's) and on the 25,600 (6, 6) ones at K1a's cold solutions
+  (phase 9's), each beside ``torch.linalg.solve`` on them (one call
+  only: it waits for the card to check its pivots, so its calls cannot
+  be queued). The systems are laid out as the derivative sweep passes
+  them (``batched_jacobian``'s row-interleaved strides), so a wrapper
+  that copies them to contiguous memory is timed with its copy;
+* K3 at nx=4, nu=1, T=51 on 512 lanes (``lqr_batch`` seed 10) and 25,600
+  (seed 11), phase 4's inputs;
+* an empty kernel's launch (``launch_ms``), the floor under any launch.
 
 At each of ``--widths``, ``--model``'s fused IP solve (K1, K1a or K1n)
 runs cold and warm-started one iterate earlier, through its narrow
 kernel (``"tile"``; K1n's group kernel) and through its per-thread
 kernel in turn (``routed``: the wrapper's width cut
 ``FUSED_IP_TILE_MAX_B`` set for the call); for cartpole, K4 too at that
-width. That is where each cut is measured. Each time is the
-median of CUDA events over ``--reps`` launches after a warm-up. Prints
-one JSON line with the card's ``nvidia-smi`` name and power limit.
+width. At each of ``--linalg-widths``, K3 (4, 1) and K2 at (10, 8) and
+(6, 6) run through their tile and per-thread kernels in turn
+(``cut_routed``: ``RICCATI_TILE_MAX_B`` or ``BATCHED_SOLVE_TILE_MAX_B``
+set for the call), on the inputs above repeated to the width (K2's
+interleaved row by row as above); K3 at (10, 4) too, on 2,048 lanes of
+``lqr_batch`` seed 12 repeated, at the widths up to 102,400 (its
+inputs take 62 kB a lane). That is where each cut is measured; a
+checkout without the tables (before the tile kernels) skips this
+sweep.
+
+``ms`` is the median of CUDA events around one call over ``--reps``
+calls after a warm-up, host work inside the call included, the time a
+caller waits for one call; ``ms_device`` (K2, K3) times ``--reps``
+calls queued back to back behind a spin kernel, the card's own time a
+call. Prints one JSON line with the card's
+``nvidia-smi`` name and power limit.
 """
 
 import argparse
@@ -67,6 +90,7 @@ def main(argv=None) -> None:
     ap.add_argument("--model", choices=("cartpole", "acrobot", "planar_push"),
                     default="cartpole")
     ap.add_argument("--widths", default="")
+    ap.add_argument("--linalg-widths", default="")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -85,8 +109,10 @@ def main(argv=None) -> None:
         batched_solve)
     from optimization_dynamics_tpu_torch.ops.kernels.fused_rollout import (
         make_fused_rollout)
+    from optimization_dynamics_tpu_torch.ops.kernels.riccati import (
+        riccati_backward)
     from optimization_dynamics_tpu_torch.solver.interior_point import (
-        IPOptions, batched_jacobian)
+        IPOptions)
 
     m = _measure()
     dev, f32 = torch.device("cuda"), torch.float32
@@ -164,16 +190,68 @@ def main(argv=None) -> None:
                                              roll), a)
                 for route in ("tile", "thread")}
 
+    def time_solve(A, b) -> dict:
+        return dict(
+            ms=m.cuda_ms(lambda: batched_solve(A, b), reps=args.reps),
+            ms_device=m.device_ms(lambda: batched_solve(A, b),
+                                  reps=args.reps),
+            library_ms=m.cuda_ms(lambda: torch.linalg.solve(A, b),
+                                 reps=args.reps),
+            rel_res=m.rel_residual(A, batched_solve(A, b), b))
+
+    # K2 on the sweeps' IFT systems: push (35, 13), cartpole (10, 8) from
+    # envelope seed 2 (phase 2), acrobot (6, 6) at K1a's cold solutions
     pm, pkern = solvers["planar_push"][:2]
     _, pz, pth = m.push_batch(6400, 30, dev, f32)
-    zs = pkern(pz, pth).z
-    A = batched_jacobian(pm.residual, 0)(zs, pth)
-    b = batched_jacobian(pm.residual, 1)(zs, pth)
-    out["k2_35_13"] = dict(
-        ms=m.cuda_ms(lambda: batched_solve(A, b), reps=args.reps),
-        library_ms=m.cuda_ms(lambda: torch.linalg.solve(A, b),
-                             reps=args.reps),
-        rel_res=m.rel_residual(A, batched_solve(A, b), b))
+    out["k2_35_13"] = time_solve(*m.ift_systems(pkern, pm, pz, pth))
+    cm, ckern = solvers["cartpole"][:2]
+    _, cz, cth = m.envelope_batch(25600, 2, dev, f32)
+    systems = {(10, 8): m.ift_systems(ckern, cm, cz, cth)}
+    am, akern, abatch = solvers["acrobot"][:3]
+    _, az, ath = abatch(25600, 40, dev, f32)
+    systems[6, 6] = m.ift_systems(akern, am, az, ath)
+    for (n, k), (A, b) in systems.items():
+        out["k2_%d_%d" % (n, k)] = time_solve(A, b)
+
+    # K3 at the deploy shape, phase 4's inputs
+    mask = torch.ones((50, 1), dtype=f32, device=dev)
+    lqr = {B: m.lqr_batch(seed, B, 51, 4, 1, dev, f32)
+           for B, seed in ((512, 10), (25600, 11))}
+    for B, data in lqr.items():
+        out["k3_%d" % B] = dict(
+            ms=m.cuda_ms(lambda: riccati_backward(*data, mask),
+                         reps=args.reps),
+            ms_device=m.device_ms(lambda: riccati_backward(*data, mask),
+                                  reps=args.reps))
+    out["empty_launch"] = m.launch_ms()
+
+    widths = [int(w) for w in filter(None, args.linalg_widths.split(","))]
+    if widths and hasattr(_build, "RICCATI_TILE_MAX_B"):
+        mask4 = torch.ones((50, 4), dtype=f32, device=dev)
+        lqr10 = m.lqr_batch(12, 2048, 51, 10, 4, dev, f32)
+
+        def both(table, key, fn, *a) -> dict:
+            return {route: dict(
+                ms=m.cuda_ms(lambda: run(*a), reps=args.reps),
+                ms_device=m.device_ms(lambda: run(*a), reps=args.reps))
+                for route in ("tile", "thread")
+                for run in [m.cut_routed(table, key, route == "tile", fn)]}
+
+        for w in widths:
+            data = m.grow_batch(lqr[25600], w)
+            out["k3_sweep_%d" % w] = both(_build.RICCATI_TILE_MAX_B, (4, 1),
+                                          riccati_backward, *data, mask)
+            del data
+            if w <= 102400:
+                data = m.grow_batch(lqr10, w)
+                out["k3_10_4_sweep_%d" % w] = both(
+                    _build.RICCATI_TILE_MAX_B, (10, 4), riccati_backward,
+                    *data, mask4)
+                del data
+            for (n, k), ab in systems.items():
+                out["k2_%d_%d_sweep_%d" % (n, k, w)] = both(
+                    _build.BATCHED_SOLVE_TILE_MAX_B, (n, k), batched_solve,
+                    *m.interleave_rows(m.grow_batch(ab, w)))
     print(json.dumps(out), flush=True)
 
 

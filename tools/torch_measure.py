@@ -16,9 +16,9 @@ Run from the repository root on a machine with one CUDA card:
 ``deploy`` runs the example's deploy solve (``examples/cartpole.py`` or
 ``examples/planar_push.py``, ``examples/acrobot.py``, ``main
 --deploy``), which prints its own summary, then prints one JSON line: the
-K1 (K1n for push, K1a for acrobot), K2 and K4 launches of the solve, K1's
-and K4's launches by kernel (tile, group for K1n, or per-thread) and
-width, the mean and
+K1 (K1n for push, K1a for acrobot), K2, K3 and K4 launches of the solve,
+each one's launches by kernel (tile, group, or per-thread) and width,
+the mean and
 median converged objective and, with ``--lanes``, each lane's flag,
 objective and inner iterations. The batch defaults to the deploy width:
 512 for cartpole, 256 for push and acrobot. ``--fused-rollout`` and
@@ -54,8 +54,10 @@ def _launch_counters():
     from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import fused_ip
     from optimization_dynamics_tpu_torch.ops.kernels.fused_rollout import (
         fused_rollout)
+    from optimization_dynamics_tpu_torch.ops.kernels.riccati import (
+        riccati_backward)
 
-    return fused_ip, batched_solve, fused_rollout
+    return fused_ip, batched_solve, fused_rollout, riccati_backward
 
 
 def _by_width(widths) -> dict:
@@ -83,10 +85,11 @@ def _example(args):
 
 def deploy(args) -> None:
     ex, B = _example(args)
-    k1, k2, k4 = _launch_counters()
-    k1.launches = k2.launches = k4.launches = 0
-    k1.widths.clear()
-    k4.widths.clear()
+    counters = _launch_counters()
+    for c in counters:
+        c.launches = 0
+        c.widths.clear()
+    k1, k2, k4, k3 = counters
     res = ex.main(["--deploy", "--device", "cuda", "--dtype", args.dtype,
                    "--batch", str(B)] + _kernel_flags(args))
     conv = res.converged.cpu().numpy()
@@ -97,9 +100,12 @@ def deploy(args) -> None:
                converged=int(conv.sum()),
                launches={"fused_ip": k1.launches,
                          "batched_solve": k2.launches,
-                         "fused_rollout": k4.launches},
+                         "fused_rollout": k4.launches,
+                         "riccati": k3.launches},
                fused_ip_widths=_by_width(k1.widths),
                fused_rollout_widths=_by_width(k4.widths),
+               batched_solve_widths=_by_width(k2.widths),
+               riccati_widths=_by_width(k3.widths),
                mean_obj_converged=(float(obj[conv].mean())
                                    if conv.any() else None),
                median_obj_converged=(float(np.median(obj[conv]))
@@ -128,14 +134,18 @@ def _busy_seconds(intervals) -> float:
 def _kernel_label(name: str) -> str:
     """The port's kernel a profiler event belongs to, by the CUDA kernel's
     name: K1 (cartpole), K1n (push) or K1a (acrobot) by the functor, each
-    the tile (K1n: group) or the per-thread kernel; K2 the per-thread or
-    the group solve; K4 the tile or the per-thread rollout."""
+    the tile (K1n: group) or the per-thread kernel; K2 the tile, the
+    per-thread or the group solve; K3 the tile or the per-thread pass; K4
+    the tile or the per-thread rollout."""
     for key, label in (("fused_ip_tile_kernel", "fused_ip (tile)"),
                        ("fused_ip_group_kernel", "fused_ip (group)"),
                        ("fused_ip_kernel", "fused_ip"),
                        ("batched_solve_group_kernel",
                         "K2 batched_solve (group)"),
+                       ("batched_solve_tile_kernel",
+                        "K2 batched_solve (tile)"),
                        ("batched_solve_kernel", "K2 batched_solve"),
+                       ("riccati_tile_kernel", "K3 riccati (tile)"),
                        ("riccati", "K3 riccati"),
                        ("fused_rollout_tile_kernel",
                         "K4 fused_rollout (tile)"),
@@ -172,13 +182,13 @@ def profile(args) -> None:
         return res, time.perf_counter() - t0
 
     run()
-    k1, k2, k4 = _launch_counters()
-    k1.launches = k2.launches = k4.launches = 0
+    k1, k2, k4, k3 = _launch_counters()
+    k1.launches = k2.launches = k4.launches = k3.launches = 0
     res, wall = run()
-    print("# unprofiled wall %.3f s, stats %s, launches K1 %d K2 %d K4 %d, "
-          "converged %d/%d" % (wall, dict(solve.stats), k1.launches,
-                               k2.launches, k4.launches,
-                               int(res.converged.sum()), B))
+    print("# unprofiled wall %.3f s, stats %s, launches K1 %d K2 %d K3 %d "
+          "K4 %d, converged %d/%d" % (wall, dict(solve.stats), k1.launches,
+                                      k2.launches, k3.launches, k4.launches,
+                                      int(res.converged.sum()), B))
 
     pr = cProfile.Profile()
     pr.enable()
