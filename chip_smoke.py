@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``optimization_dynamics_tpu_torch/ops/
-kernels/csrc`` and runs twelve phases, each printing one ``#`` line:
+kernels/csrc`` and runs fourteen phases, each printing one ``#`` line:
 
 0. card: ``nvidia-smi`` name and power limit, torch and CUDA versions,
    kernel build time in all and per source, and what ``ptxas`` reported
@@ -125,7 +125,32 @@ kernels/csrc`` and runs twelve phases, each printing one ``#`` line:
    (``scripts/loop_overhead.py``: each variant timed over 20 launches
    after a warm-up), then each variant against its plain version,
    float32 atol 1e-4 (the kernel rounds every product and sum as the
-   plain loop does, so it is expected to match bit for bit).
+   plain loop does, so it is expected to match bit for bit);
+12. K2 at the hopper's (20, 1) and (20, 13) against its plain version on
+   the 5,120 Newton and IFT systems of a hopper sweep (B x (T-1) at
+   B=256; ``hopper_systems``, numpy seed 50: first Newton steps from
+   cold starts, IFT Jacobians at IP solutions, row-interleaved as the
+   solver and the sweep pass them), relative residual <= 1e-12 in
+   float64 and <= 1e-5 in float32, float32 timed one call and queued
+   beside ``torch.linalg.solve``; then K3 at (16, 10), T=21, at 256 and
+   253 lanes (``lqr_batch`` seeds 51, 52) with the hopper's ragged
+   ``u_mask`` and, on every fifth lane, a Quu at t=0 whose last pivot is
+   negative, through the wrapper's route and each of its two kernels
+   (tile, per-thread), forced by the width cut: ``ok`` identical and
+   "every pivot > 0", relative difference <= 1e-10 in float64 and <=
+   1e-4 in float32 (float32 compares the indefinite lanes' gains only),
+   masked gains exactly 0, whether the two kernels agree bit for bit
+   recorded; float32 timed through each kernel;
+13. the hopper main path at full width, twice: the hopper deploy problem
+   (gait 1, float32, T=21) solved by the segmented executor at B=256 for
+   two AL rounds of three inner iterations, with the eager backward pass
+   and then with K3; each run: outputs finite, the objective and the
+   constraint violation below the open-loop rollout's on most lanes, K2
+   launched at (20, 1) and (20, 13) and only there, on its group kernel,
+   K3 launched only in the second run and on the kernel its width picks
+   (launches by kernel, shape and width printed); then the four-lane
+   float64 card-against-CPU check of phase 3 with the same backward
+   pass.
 
 The kernels' designs are in their wrappers' docstrings
 (``ops/kernels/*.py``). K1 (cartpole), K1a (acrobot) and K4 (cartpole's
@@ -148,12 +173,14 @@ one scenario a thread. K2 above 16 unknowns runs one system on a
 (``BATCHED_SOLVE_TILE_MAX_B``) one system on a tile of threads (the
 smallest power of two >= n + k: 32 at (10, 8), 16 at (6, 6)), a column
 a thread, wider launches one system a thread (at (10, 8), whose cut is
-0, every launch). K3 up to its cut
-(``RICCATI_TILE_MAX_B``) runs one scenario on a tile of threads (an
-element of the nx x nx updates a thread, up to a warp: 16 at nx=4), its
-state and the step's inputs in shared memory, an element or a column of
-the step's matrices a thread; wider launches one scenario a thread. K5 runs one column a
-thread.
+0, every launch); the hopper's (20, 1) and (20, 13) run the 64-thread
+block. K3 up to its cut (``RICCATI_TILE_MAX_B``) runs one scenario on a
+tile of threads (an element of the nx x nx updates a thread, up to a
+warp: 16 at nx=4, 32 at the hopper's nx=16), its state and the step's
+inputs in shared memory, an element or a column of the step's matrices
+a thread; above 4 controls (the hopper's 10) one thread of the tile
+factors Quu in shared memory for all; wider launches one scenario a
+thread. K5 runs one column a thread.
 
 Times: ``ms`` is the median of CUDA events around one call, host work
 inside the call included, for every kernel; ``ms_device`` (K2, K3 and
@@ -192,7 +219,12 @@ times at 25,600 as ``ms_25600`` and ``ms_device_25600``; K2's
 ``library_ms`` is one call of ``torch.linalg.solve``, which waits for
 the card to check its pivots, so its calls cannot be queued; and
 ``riccati_tile`` carries an empty kernel's launch time, both ways,
-beside its bound). The last line is ``{"ok": true,
+beside its bound; ``batched_solve_n20_k1`` and ``batched_solve_n20_k13``
+are K2 on phase 12's 5,120 hopper Newton and IFT systems, with their
+launches from phase 13's eager run; ``riccati_n16_u10`` and
+``riccati_n16_u10_tile`` K3's per-thread and tile kernels at (16, 10) on
+256 lanes, with their launches from phase 13's K3 run). The last line
+is ``{"ok": true,
 "device": {...}}``. It needs one card and no network.
 """
 
@@ -207,8 +239,9 @@ import numpy as np
 
 from optimization_dynamics_tpu_torch.utils.measure import (
     cuda_ms, cut_routed, device_ms, envelope_batch, grow_batch,
-    ift_systems, interleave_rows, launch_ms, lqr_batch, nvidia_smi,
-    push_batch, rel_residual, rollout_batch, routed, warm_batch)
+    hopper_systems, ift_systems, interleave_rows, launch_ms, lqr_batch,
+    nvidia_smi, push_batch, rel_residual, rollout_batch, routed,
+    warm_batch)
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
@@ -661,7 +694,7 @@ def _riccati_flops(nx: int, nu: int) -> int:
 
 
 def _k3_agreement(got, ref, bad, dtype, tol: float, what: str,
-                  nu: int, ragged: bool) -> dict:
+                  mask) -> dict:
     """K3's outputs against its plain version's; see the module docstring
     for the checks."""
     import torch
@@ -676,10 +709,9 @@ def _k3_agreement(got, ref, bad, dtype, tol: float, what: str,
         whole = (got[:5] if dtype == torch.float64 else got[:2])
         rel = max(rel, _rel_diff(whole, ref[:len(whole)], bad))
     _check(rel <= tol, "K3 %s: relative difference %.3e" % (what, rel))
-    if ragged:
-        _check(bool((got[0][:, :, nu - 1] == 0).all()
-                    & (got[1][:, 0, 0] == 0).all()),
-               "K3 %s: masked gains not 0" % what)
+    off = mask == 0
+    _check(bool((got[0][:, off] == 0).all() & (got[1][:, off] == 0).all()),
+           "K3 %s: masked gains not 0" % what)
     return dict(rel_diff=rel,
                 max_abs_err=float(max((g - r)[~bad].abs().max()
                                       for g, r in zip(got[:2], ref[:2]))),
@@ -732,8 +764,7 @@ def phase_k3(device) -> dict:
                            "K3 %s %s: not on the %s kernel"
                            % (name, case, key))
                 agree = _k3_agreement(got[key], ref, bad, dtype, tol,
-                                      "%s %s %s" % (name, case, key), nu,
-                                      case.startswith("ragged_4"))
+                                      "%s %s %s" % (name, case, key), mask)
                 if key == "route":
                     res[case] = dict(agree, route=riccati_route(nx, nu, B))
                 else:
@@ -1394,6 +1425,221 @@ def phase_k5(device) -> dict:
     return out
 
 
+def phase_hopper_kernels(device) -> dict:
+    """K2 at (20, 1) and (20, 13) on the 5,120 Newton and IFT systems of
+    a hopper sweep (B=256 x 20 steps; ``utils/measure.py::
+    hopper_systems``), and K3 at (16, 10) at B=256 and 253 lanes (T=21)
+    with the hopper's mask and an indefinite Quu on every fifth lane,
+    through the route and each of its two kernels, against their plain
+    versions; see the module docstring for the tolerances."""
+    import torch
+
+    from optimization_dynamics_tpu_torch.examples import hopper as ex
+    from optimization_dynamics_tpu_torch.ops.kernels._build import (
+        RICCATI_TILE_MAX_B, batched_solve_route, riccati_route)
+    from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
+        batched_solve, batched_solve_plain)
+    from optimization_dynamics_tpu_torch.ops.kernels.riccati import (
+        riccati_backward, riccati_backward_plain)
+
+    T, nx, nu = ex.T, ex.NX, ex.NU
+    out = {}
+    for dtype, res_tol, k3_tol in ((torch.float64, 1e-12, 1e-10),
+                                   (torch.float32, 1e-5, 1e-4)):
+        name = "f64" if dtype == torch.float64 else "f32"
+        newton, ift = hopper_systems(5120, 50, device, dtype)
+        res = {}
+        for case, (A, b) in (("newton_k1", newton), ("ift_k13", ift)):
+            n, k = A.shape[1], b.shape[2]
+            xk = batched_solve(A, b)
+            xp = batched_solve_plain(A, b)
+            torch.cuda.synchronize()
+            _check(bool(torch.isfinite(xk).all()), "K2 %s (%d, %d): x not "
+                   "finite" % (name, n, k))
+            rk = rel_residual(A, xk, b)
+            _check(rk <= res_tol, "K2 %s (%d, %d) relative residual %.3e"
+                   % (name, n, k, rk))
+            dx = float((xk - xp).abs().max())
+            r = dict(rel_res=rk, rel_res_plain=rel_residual(A, xp, b),
+                     max_dx=dx, rel_dx=dx / float(xp.abs().max()),
+                     route=batched_solve_route(n, k, A.shape[0]))
+            if dtype == torch.float32:
+                r["ms"] = cuda_ms(lambda: batched_solve(A, b))
+                r["ms_device"] = device_ms(lambda: batched_solve(A, b))
+                r["plain_ms"] = cuda_ms(lambda: batched_solve_plain(A, b))
+                # the one PyTorch call that computes the same function
+                # (timed only; the port never calls it)
+                r["library_ms"] = cuda_ms(lambda: torch.linalg.solve(A, b))
+                r.update(_bound(2 * _nbytes(b) + _nbytes(A),
+                                A.shape[0] * (4.0 / 3.0 * n ** 3
+                                              + 3 * n ** 2 * k)))
+            res[case] = r
+
+        mask = ex.control_mask(device).to(dtype)
+        for case, (B, seed) in (("hopper_256", (256, 51)),
+                                ("ragged_batch_253", (253, 52))):
+            data = lqr_batch(seed, B, T, nx, nu, device, dtype)
+            # the last pivot of Quu at t=0 negative on every fifth lane
+            bad = torch.zeros(B, dtype=torch.bool, device=device)
+            bad[::5] = True
+            data[5][bad, 0, nu - 1, nu - 1] = -1.0e4
+            ref = riccati_backward_plain(*data, mask)
+            runs = {"route": riccati_backward}
+            for route in ("tile", "thread"):
+                runs[route] = cut_routed(RICCATI_TILE_MAX_B, (nx, nu),
+                                         route == "tile", riccati_backward)
+            got = {}
+            for key, run in runs.items():
+                tiles = riccati_backward.tile_launches
+                got[key] = run(*data, mask)
+                torch.cuda.synchronize()
+                if key != "route":
+                    _check(riccati_backward.tile_launches - tiles
+                           == (key == "tile"),
+                           "K3 %s %s: not on the %s kernel"
+                           % (name, case, key))
+                agree = _k3_agreement(got[key], ref, bad, dtype, k3_tol,
+                                      "%s %s %s" % (name, case, key), mask)
+                if key == "route":
+                    res[case] = dict(agree, route=riccati_route(nx, nu, B))
+                else:
+                    res[case][key] = agree
+            res[case]["tile_bitwise_thread"] = all(
+                torch.equal(a, b) for a, b in zip(got["tile"],
+                                                  got["thread"]))
+            if dtype == torch.float32 and case == "hopper_256":
+                res[case]["ms"] = cuda_ms(
+                    lambda: riccati_backward(*data, mask))
+                res[case]["plain_ms"] = cuda_ms(
+                    lambda: riccati_backward_plain(*data, mask), reps=3)
+                for route in ("tile", "thread"):
+                    res[case][route].update(
+                        ms=cuda_ms(lambda: runs[route](*data, mask)),
+                        ms_device=device_ms(lambda: runs[route](*data,
+                                                                mask)))
+                res[case].update(_bound(
+                    _nbytes(*data, mask, *got["route"][:2]) + 4 * B * 4,
+                    B * (T - 1) * _riccati_flops(nx, nu)))
+        out[name] = res
+    return out
+
+
+def _hopper_solve(device, riccati_kernel: bool) -> dict:
+    """The hopper deploy solve at full width (B=256, T=21, float32) for
+    two AL rounds of three inner iterations, eager backward pass or K3,
+    then the four-lane float64 card-against-CPU check with the same
+    backward pass."""
+    import torch
+
+    from optimization_dynamics_tpu_torch.examples import hopper as ex
+    from optimization_dynamics_tpu_torch.ops.kernels._build import (
+        RICCATI_TILE_MAX_B)
+    from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
+        batched_solve)
+    from optimization_dynamics_tpu_torch.ops.kernels.riccati import (
+        riccati_backward)
+    from optimization_dynamics_tpu_torch.solver.ilqr_batched import (
+        make_phases)
+    from optimization_dynamics_tpu_torch.solver.ilqr_segmented import (
+        make_segmented_solver)
+
+    B = 256
+    prob, x0, us0, opts = ex.build_deploy_problem(device, gait=1)
+    _check(x0.dtype == torch.float32, "hopper deploy dtype on the card is "
+           "f32")
+    opts = dataclasses.replace(opts, max_al_iter=2,
+                               riccati_kernel=riccati_kernel)
+    x0s = ex.deploy_x0s(x0, B, seed=0)
+    ph = make_phases(prob, opts, B, x0.dtype, device)
+    uss0 = us0[None].expand(B, -1, -1)
+    xss0, _ = ph.rollout_open(x0s, uss0)
+    # standing still costs more than the gait and misses its travel and
+    # periodicity, which are terminal constraints: the solve lowers both
+    obj0 = ph.smooth_cost(xss0, uss0)
+    vio0 = ph.con_violation(xss0, uss0)
+    solve = make_segmented_solver(prob, opts, B, x0.dtype, device,
+                                  max_iter_schedule=[3, 3],
+                                  al_stall_rounds=ex.DEPLOY_AL_STALL_ROUNDS)
+
+    _zero_counts(batched_solve)
+    batched_solve.shapes.clear()
+    _zero_counts(riccati_backward)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve(x0s, us0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"batched_solve_n%d_k%d" % nk: c
+                for nk, c in sorted(batched_solve.shapes.items())}
+    launches.update(_split_counts("riccati_n16_u10", riccati_backward))
+
+    for name in ("xs", "us", "objective", "al_objective",
+                 "constraint_violation", "lam", "lamT", "rho"):
+        _check(bool(torch.isfinite(getattr(res, name)).all()),
+               "hopper path: %s not finite" % name)
+    _check(tuple(res.xs.shape) == (B, ex.T, ex.NX), "hopper xs shape")
+    fell = float((res.objective < obj0).float().mean())
+    _check(fell >= 0.5, "hopper objective fell on only %.3f of lanes"
+           % fell)
+    vfell = float((res.constraint_violation < vio0).float().mean())
+    _check(vfell >= 0.5, "hopper violation fell on only %.3f of lanes"
+           % vfell)
+    for nk in ("n20_k1", "n20_k13"):
+        _check(launches.get("batched_solve_" + nk, 0) > 0,
+               "batched_solve_%s not launched on the hopper path" % nk)
+    _check(set(batched_solve.shapes) == {(20, 1), (20, 13)}
+           and all(route == "group" for route, _ in batched_solve.widths),
+           "hopper K2 launches off (20, 1), (20, 13) or the group kernel")
+    k3 = launches["riccati_n16_u10"] + launches["riccati_n16_u10_tile"]
+    _check((k3 > 0) == riccati_kernel,
+           "K3 launched %d times with riccati_kernel=%s"
+           % (k3, riccati_kernel))
+    travel, per = ex.gait_errors(res.xs[:, -1])
+    out = dict(wall_s=wall, launches=launches, stats=dict(solve.stats),
+               converged=int(res.converged.sum()), batch=B,
+               mean_objective=float(res.objective.mean()),
+               mean_initial_objective=float(obj0.mean()),
+               objective_fell_frac=fell, violation_fell_frac=vfell,
+               mean_initial_violation=float(vio0.mean()),
+               mean_violation=float(res.constraint_violation.mean()),
+               mean_travel=float(travel.mean()),
+               max_periodicity=float(per.max()),
+               mean_inner_iters=float(res.iterations.float().mean()),
+               batched_solve_widths={"%s_%d" % kb: n for kb, n in sorted(
+                   batched_solve.widths.items())},
+               riccati_widths=_routed_widths(
+                   "K3", riccati_backward, RICCATI_TILE_MAX_B[16, 10]))
+
+    # small-input agreement: float64 on the card (K2, and K3 if on)
+    # against the same solve on the CPU (plain versions), accelerator IP
+    # settings
+    small = []
+    for dev in (device, torch.device("cpu")):
+        p, x0d, usd, o = ex.build_deploy_problem(
+            dev, dtype=torch.float64, accelerator_ip=True)
+        o = dataclasses.replace(o, max_al_iter=1,
+                                riccati_kernel=riccati_kernel)
+        s = make_segmented_solver(p, o, 4, torch.float64, dev,
+                                  compact=False, max_iter_schedule=[2])
+        r = s(ex.deploy_x0s(x0d, 4, seed=0), usd)
+        small.append((r.objective.cpu(), r.us.cpu()))
+    (obj_card, us_card), (obj_cpu, us_cpu) = small
+    dobj = float((obj_card / obj_cpu - 1).abs().max())
+    dus = float((us_card - us_cpu).abs().max())
+    _check(dobj <= 1e-6 and dus <= 1e-6,
+           "hopper small f64 card vs CPU: rel dobj %.3e, max dus %.3e"
+           % (dobj, dus))
+    out["small_f64_vs_cpu"] = dict(rel_dobj=dobj, max_dus=dus)
+    return out
+
+
+def phase_hopper(device) -> dict:
+    """The hopper main path twice: with the eager backward pass, then
+    with K3."""
+    return {"eager": _hopper_solve(device, False),
+            "riccati_kernel": _hopper_solve(device, True)}
+
+
 def main() -> int:
     import torch
 
@@ -1448,6 +1694,11 @@ def main() -> int:
     k5 = phase_k5(device)
     print("# phase 11 K5 loop_overhead vs plain: %s" % json.dumps(k5),
           flush=True)
+    hk = phase_hopper_kernels(device)
+    print("# phase 12 K2 (20, 1), (20, 13) and K3 (16, 10) vs plain: %s"
+          % json.dumps(hk), flush=True)
+    ho = phase_hopper(device)
+    print("# phase 13 hopper main path: %s" % json.dumps(ho), flush=True)
 
     src = "optimization_dynamics_tpu_torch/ops/kernels/csrc/"
     tpu = "optimization_dynamics_tpu/ops/pallas/"
@@ -1598,6 +1849,28 @@ def main() -> int:
              bound_ms=k5t["bound_ms"], bound_by=k5t["bound_by"],
              library_ms=None),
     ]
+    for case, nk in (("newton_k1", "n20_k1"), ("ift_k13", "n20_k13")):
+        h = hk["f32"][case]
+        kernels.append(dict(
+            name="batched_solve_" + nk, route="cuda",
+            source=src + "batched_solve.cu",
+            replaces=tpu + "batched_solve.py:119",
+            launches=ho["eager"]["launches"]["batched_solve_" + nk],
+            max_abs_err=h["max_dx"], ms=h["ms"], ms_device=h["ms_device"],
+            plain_ms=h["plain_ms"], bound_ms=h["bound_ms"],
+            bound_by=h["bound_by"], library_ms=h["library_ms"]))
+    k3h = hk["f32"]["hopper_256"]
+    for name, route in (("riccati_n16_u10", "thread"),
+                        ("riccati_n16_u10_tile", "tile")):
+        kernels.append(dict(
+            name=name, route="cuda", source=src + "riccati.cu",
+            replaces=tpu + "riccati.py:262",
+            launches=ho["riccati_kernel"]["launches"][name],
+            max_abs_err=max(hk["f32"][c][route]["max_abs_err"]
+                            for c in ("hopper_256", "ragged_batch_253")),
+            ms=k3h[route]["ms"], ms_device=k3h[route]["ms_device"],
+            plain_ms=k3h["plain_ms"], bound_ms=k3h["bound_ms"],
+            bound_by=k3h["bound_by"], library_ms=None))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -81,20 +81,24 @@ FUSED_IP_TILE_MAX_B = {("fused_ip", "cartpole_friction"): 16384,
                        ("fused_rollout", "cartpole_friction"): 12288}
 FUSED_ROLLOUT_FUNCTORS = {"cartpole_friction": (2, 1)}  # name -> (nq, nu)
 BATCHED_SOLVE_SHAPES = frozenset({(10, 8), (10, 1), (35, 13), (6, 6),
-                                  (2, 1), (2, 6)})  # (n, k)
-RICCATI_SHAPES = frozenset({(4, 1), (4, 3), (6, 3), (10, 4)})  # (nx, nu)
+                                  (2, 1), (2, 6), (20, 1),
+                                  (20, 13)})  # (n, k)
+RICCATI_SHAPES = frozenset({(4, 1), (4, 3), (6, 3), (10, 4),
+                            (16, 10)})  # (nx, nu)
 # K2 above this many unknowns runs one 64-thread block a system
 # (csrc/odt_common.cuh, UNROLL_MAX_N); at or below, a tile kernel and a
 # per-thread kernel
 UNROLL_MAX_N = 16
 # The widest batch each wrapper sends its tile kernel (a tile of threads a
 # system or scenario); wider launches run the per-thread kernel. Each cut
-# is the widest width of the sweep (512 to 409,600; K3 at (10, 4) to
-# 102,400; tools/kernel_times.py --linalg-widths, K2 on the derivative
+# is the widest width of the sweep (512 to 409,600; K3 at (10, 4) and
+# (16, 10) to 102,400; tools/kernel_times.py --linalg-widths, K2 on the derivative
 # sweep's row-interleaved systems; PERF.md section 6) at which the tile
 # kernel took less of the card's time. K3 at (4, 1) and K2 at (6, 6) win
 # at every width swept, so their 409,600 is the end of the sweep, not a
-# measured crossover. K3 at (10, 4) wins at 6,400 and loses from 25,600.
+# measured crossover; so does K3 at the hopper's (16, 10) up to 102,400,
+# the end of its sweep (41 against 92 ms there; its per-thread kernel
+# spills). K3 at (10, 4) wins at 6,400 and loses from 25,600.
 # K2 at (10, 8) is the exception, at 0: reading the strides made its
 # per-thread kernel as fast as the tile at 25,600 (and faster wider);
 # at 512-6,400 the tile saves at most 0.013 ms of the card's time a
@@ -107,7 +111,7 @@ UNROLL_MAX_N = 16
 BATCHED_SOLVE_TILE_MAX_B = {(10, 8): 0, (10, 1): 0, (6, 6): 409600,
                             (2, 1): 0, (2, 6): 0}  # (n, k) -> B
 RICCATI_TILE_MAX_B = {(4, 1): 409600, (4, 3): 6400, (6, 3): 6400,
-                      (10, 4): 6400}  # (nx, nu) -> B
+                      (10, 4): 6400, (16, 10): 102400}  # (nx, nu) -> B
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 

@@ -6,7 +6,9 @@ Replaces the Pallas kernel ``batched_solve`` of
 the main path it is the IFT multi-right-hand-side solve of every
 derivative sweep (n=10, k=8, B x (T-1) = 25,600 systems at the deploy
 width) and the Newton solve of ``make_solver_batched`` (n=10, k=1), which
-runs on the card for a model without a fused-IP device functor.
+runs on the card for a model without a fused-IP device functor: the
+hopper's every IP iteration at (20, 1) and every IFT solve at (20, 13),
+B x (T-1) = 5,120 systems at its deploy width.
 
 What bounds it on an H100: the arithmetic is small (a 10x10 system with
 8 right-hand sides is ~4k flops on 260 values), so the kernel is bound by
@@ -31,9 +33,11 @@ latency and by how its loads coalesce. Three kernels, each running
   threads read words n apart, and at 25,600 systems it takes the
   card as long as the tile kernel.
 * Above 16 unknowns (planar push's 35x35 systems with 13 right-hand
-  sides) one system would be ~57k dependent operations in one thread's
-  local memory, so one 64-thread block solves a system with
-  ``qr_group.cuh``, staged through shared memory as the tile kernel.
+  sides, the hopper's 20x20 with 1 and 13) one system would be up to
+  ~57k dependent operations in one thread's local memory, so one
+  64-thread block solves a system with ``qr_group.cuh``, staged through
+  shared memory as the tile kernel (21 and 33 of the 64 threads own a
+  column at the hopper's shapes; the rest only sync).
 
 The tile and group kernels run the same code (``qr_solve_group``), and
 the group kernel gives the rolled per-thread QR's x bit for bit at (35,
@@ -53,8 +57,8 @@ the block's systems, so its loads still coalesce.
 
 The wrapper picks by ``_build.batched_solve_route(n, k, B)``; it counts
 every launch in ``batched_solve.launches``, the tile kernel's in
-``batched_solve.tile_launches`` too, and each launch by (kernel, B) in
-``batched_solve.widths``.
+``batched_solve.tile_launches`` too, each launch by (kernel, B) in
+``batched_solve.widths`` and by (n, k) in ``batched_solve.shapes``.
 
 The wrapper takes the plain version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises.
@@ -163,9 +167,11 @@ def batched_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     batched_solve.launches += 1
     batched_solve.tile_launches += route == "tile"
     batched_solve.widths[route, B] += 1
+    batched_solve.shapes[n, k] += 1
     return x
 
 
 batched_solve.launches = 0
 batched_solve.tile_launches = 0
 batched_solve.widths = Counter()
+batched_solve.shapes = Counter()

@@ -11,7 +11,8 @@
 // Shapes: (10, 8) and (10, 1) for cartpole's IFT and Newton solves, (35,
 // 13) for planar push's IFT solve, (6, 6) for the acrobot's IFT solve and
 // (2, 1), (2, 6) for the Newton and IFT solves of the acrobot without
-// joint limits (no fused-IP functor).
+// joint limits and (20, 1), (20, 13) for the hopper's (no fused-IP
+// functor).
 //
 // Three kernels:
 // * N <= UNROLL_MAX_N, narrow launches (the wrapper's cut,
@@ -73,7 +74,8 @@ batched_solve_kernel(const T* __restrict__ A, const T* __restrict__ b,
   }
 }
 
-// one system a block; 64 threads cover the N + K columns of (35, 13)
+// one system a block; 64 threads cover the N + K columns of (35, 13),
+// and of the hopper's (20, 1) and (20, 13)
 constexpr int GROUP_SOLVE_THREADS = 64;
 
 template <typename T, int N, int K>
@@ -254,6 +256,10 @@ ODT_BATCHED_SOLVE(2, 1, f32, float)
 ODT_BATCHED_SOLVE(2, 1, f64, double)
 ODT_BATCHED_SOLVE(2, 6, f32, float)
 ODT_BATCHED_SOLVE(2, 6, f64, double)
+ODT_BATCHED_SOLVE(20, 1, f32, float)
+ODT_BATCHED_SOLVE(20, 1, f64, double)
+ODT_BATCHED_SOLVE(20, 13, f32, float)
+ODT_BATCHED_SOLVE(20, 13, f64, double)
 ODT_BATCHED_SOLVE_TILE(10, 8, f32, float)
 ODT_BATCHED_SOLVE_TILE(10, 8, f64, double)
 ODT_BATCHED_SOLVE_TILE(10, 1, f32, float)

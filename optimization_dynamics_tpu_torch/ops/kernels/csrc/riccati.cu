@@ -335,11 +335,17 @@ int launch_riccati(const void* fxs, const void* fus, const void* lxs,
 // A. VF = Vxx fx and VFu = Vxx fu, an element a thread (element e =
 //    rank + q W of the row-major matrix); Qx[l] on thread l; Qu on every
 //    thread.
-// B. Qxx, an element a thread. Every thread computes Quu, its Cholesky
-//    factor, ok, k = -Quu^-1 Qu, Quu k and the step's dV1, dV2, |Qu|_inf
-//    itself, so they are bit-identical across the tile without a
-//    broadcast (NU <= 4). Thread l < NX owns column l: Qux[:, l], its
-//    gains K[:, l] = -Quu^-1 Qux[:, l], (Quu K)[:, l] and the new Vx[l].
+// B. Qxx, an element a thread. Up to RICCATI_TILE_LANE_NU controls,
+//    every thread computes Quu, its Cholesky factor, ok, k = -Quu^-1 Qu,
+//    Quu k and the step's dV1, dV2, |Qu|_inf itself, so they are
+//    bit-identical across the tile without a broadcast. Thread l < NX
+//    owns column l: Qux[:, l], its gains K[:, l] = -Quu^-1 Qux[:, l],
+//    (Quu K)[:, l] and the new Vx[l]. Above RICCATI_TILE_LANE_NU (the
+//    hopper's NU = 10: Quu and its factor would be 200 values in every
+//    thread's registers) Quu is formed an element a thread in the tile's
+//    factor slab, a sync, thread 0 factors it there and forms k, Quu k
+//    and the stats, a sync, and the column owners read the factor, k
+//    and Quu k from the slab: two syncs more a step.
 // C. The new Vxx, an element a thread: the owner of (i, l) forms both
 //    (i, l) and (l, i) before symmetrising, so no second sync is needed.
 // Step t-1's inputs are loaded into registers at the start of step t
@@ -364,6 +370,10 @@ __host__ __device__ constexpr int riccati_tile_width() {
 // threads a block of the tile kernel
 constexpr int RICCATI_TILE_BLOCK = 64;
 
+// the most controls whose Quu every thread of a tile factors itself;
+// above, thread 0 factors it once in the tile's RiccatiFactor slab
+constexpr int RICCATI_TILE_LANE_NU = 4;
+
 // one step's inputs in the slab: fx | fu | lx | lu | lxx | luu | lux
 template <int NX, int NU>
 struct RiccatiStep {
@@ -377,6 +387,12 @@ struct RiccatiSlab {
   T in[RiccatiStep<NX, NU>::SIZE];
   T Vx[NX], Vxx[NX * NX], VF[NX * NX], VFu[NX * NU], Qxx[NX * NX];
   T Qux[NU * NX], KK[NU * NX], QK[NU * NX];  // row-major (NU, NX)
+};
+
+// a tile's Quu, its Cholesky factor, k and Quu k (NU > RICCATI_TILE_LANE_NU)
+template <typename T, int NU>
+struct RiccatiFactor {
+  T Quu[NU][NU], L[NU][NU], kk[NU], Quu_k[NU];
 };
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -437,6 +453,84 @@ __device__ __forceinline__ void riccati_step_store(const T (&r)[NR],
   tile_store<NU * NX, W, P::LUX>(r, rank, in + S::LUX);
 }
 
+// k = -Quu^-1 Qu from Quu's factor L, and Quu k
+template <typename T, int NU>
+__device__ __forceinline__ void riccati_gain_k(const T (&Quu)[NU][NU],
+                                               const T (&L)[NU][NU],
+                                               const T (&Qu)[NU], T (&kk)[NU],
+                                               T (&Quu_k)[NU]) {
+  T x[NU];
+#pragma unroll
+  for (int i = 0; i < NU; ++i) x[i] = Qu[i];
+  riccati_chol_solve<T, NU>(L, x);
+#pragma unroll
+  for (int i = 0; i < NU; ++i) x[i] = -x[i];
+#pragma unroll
+  for (int i = 0; i < NU; ++i) {
+    T acc = T(0);
+#pragma unroll
+    for (int j = 0; j < NU; ++j) acc += Quu[i][j] * x[j];
+    Quu_k[i] = acc;
+    kk[i] = x[i];
+  }
+}
+
+// the step's dV1 += k.Qu, dV2 += k.Quu k / 2 and |Qu|_inf
+template <typename T, int NU>
+__device__ __forceinline__ void riccati_stats(const T (&kk)[NU],
+                                              const T (&Qu)[NU],
+                                              const T (&Quu_k)[NU], T& dV1,
+                                              T& dV2, T& qu_inf) {
+  T d1 = T(0), d2 = T(0), qi = T(0);
+#pragma unroll
+  for (int i = 0; i < NU; ++i) {
+    d1 += kk[i] * Qu[i];
+    d2 += kk[i] * Quu_k[i];
+    qi = i == 0 ? jabs(Qu[i]) : jmax(qi, jabs(Qu[i]));
+  }
+  dV1 = dV1 + d1;
+  dV2 = dV2 + T(0.5) * d2;
+  qu_inf = jmax(qu_inf, qi);
+}
+
+// column l of the step (thread l < NX): Qux[:, l], its gains K[:, l] =
+// -Quu^-1 Qux[:, l] (to Ko and the slab), (Quu K)[:, l] and the new Vx[l]
+template <typename T, int NX, int NU>
+__device__ __forceinline__ void riccati_tile_column(
+    int l, const T* fu, const T* lux, const bool (&m)[NU], const T (&Qu)[NU],
+    T Qx, const T (&Quu)[NU][NU], const T (&L)[NU][NU], const T (&kk)[NU],
+    const T (&Quu_k)[NU], RiccatiSlab<T, NX, NU>& sm, T* Ko) {
+  T qux[NU], K[NU];
+#pragma unroll
+  for (int i = 0; i < NU; ++i) {
+    T acc = T(0);
+#pragma unroll
+    for (int j = 0; j < NX; ++j) acc += fu[j * NU + i] * sm.VF[j * NX + l];
+    qux[i] = m[i] ? lux[i * NX + l] + acc : T(0);
+    K[i] = qux[i];
+  }
+  riccati_chol_solve<T, NU>(L, K);
+  T a = T(0), b = T(0), c = T(0);
+#pragma unroll
+  for (int i = 0; i < NU; ++i) {
+    K[i] = -K[i];
+    a += K[i] * Qu[i];
+    b += qux[i] * kk[i];
+    c += K[i] * Quu_k[i];
+  }
+  sm.Vx[l] = ((Qx + a) + b) + c;
+#pragma unroll
+  for (int i = 0; i < NU; ++i) {
+    T acc = T(0);
+#pragma unroll
+    for (int j = 0; j < NU; ++j) acc += Quu[i][j] * K[j];
+    sm.QK[i * NX + l] = acc;
+    sm.Qux[i * NX + l] = qux[i];
+    sm.KK[i * NX + l] = K[i];
+    Ko[i * NX + l] = K[i];
+  }
+}
+
 // One tile a scenario. A tile whose scenario is past B returns as a
 // whole before any sync; every sync is the tile's own.
 template <typename T, int NX, int NU>
@@ -457,6 +551,8 @@ riccati_tile_kernel(const T* __restrict__ fxs, const T* __restrict__ fus,
   constexpr int NN = NX * NX;
   using S = RiccatiStep<NX, NU>;
   __shared__ RiccatiSlab<T, NX, NU> slabs[TILES];
+  constexpr bool shared_factor = NU > RICCATI_TILE_LANE_NU;
+  __shared__ RiccatiFactor<T, NU> factors[shared_factor ? TILES : 1];
   const cg::thread_block_tile<W> tile =
       cg::tiled_partition<W>(cg::this_thread_block());
   const int lane = blockIdx.x * TILES + static_cast<int>(threadIdx.x) / W;
@@ -537,8 +633,9 @@ riccati_tile_kernel(const T* __restrict__ fxs, const T* __restrict__ fus,
     }
     tile.sync();
 
-    // B: Qxx (an element a thread); Quu, its factor, k (every thread);
-    // column l of Qux, K, Quu K and Vx[l] (thread l)
+    // B: Qxx (an element a thread); Quu, its factor, k (every thread, or
+    // thread 0 in the factor slab); column l of Qux, K, Quu K and Vx[l]
+    // (thread l)
 #pragma unroll
     for (int q = 0; q < cdiv(NN, W); ++q) {
       const int e = rank + q * W;
@@ -550,83 +647,65 @@ riccati_tile_kernel(const T* __restrict__ fxs, const T* __restrict__ fus,
         sm.Qxx[e] = lxx[e] + acc;
       }
     }
-    T Quu[NU][NU];
-#pragma unroll
-    for (int i = 0; i < NU; ++i) {
-#pragma unroll
-      for (int l = 0; l < NU; ++l) {
-        T acc = T(0);
-#pragma unroll
-        for (int j = 0; j < NX; ++j) acc += fu[j * NU + i] * sm.VFu[j * NU + l];
-        const T q = m[i] && m[l] ? luu[i * NU + l] + acc : T(0);
-        Quu[i][l] = i == l ? q + (m[i] ? reg : T(1)) : q;
-      }
-      if (!m[i]) Qu[i] = T(0);
-    }
-    T L[NU][NU];
-    const bool ok = riccati_chol<T, NU>(Quu, L);
-    T kk[NU];
-#pragma unroll
-    for (int i = 0; i < NU; ++i) kk[i] = Qu[i];
-    riccati_chol_solve<T, NU>(L, kk);
-#pragma unroll
-    for (int i = 0; i < NU; ++i) kk[i] = -kk[i];
-    T Quu_k[NU];
-#pragma unroll
-    for (int i = 0; i < NU; ++i) {
-      T acc = T(0);
-#pragma unroll
-      for (int j = 0; j < NU; ++j) acc += Quu[i][j] * kk[j];
-      Quu_k[i] = acc;
-    }
-    if (rank < NX) {
-      const int l = rank;
-      T qux[NU], K[NU];
+    if constexpr (!shared_factor) {
+      T Quu[NU][NU];
 #pragma unroll
       for (int i = 0; i < NU; ++i) {
-        T acc = T(0);
 #pragma unroll
-        for (int j = 0; j < NX; ++j) acc += fu[j * NU + i] * sm.VF[j * NX + l];
-        qux[i] = m[i] ? lux[i * NX + l] + acc : T(0);
-        K[i] = qux[i];
+        for (int l = 0; l < NU; ++l) {
+          T acc = T(0);
+#pragma unroll
+          for (int j = 0; j < NX; ++j) acc += fu[j * NU + i] * sm.VFu[j * NU + l];
+          const T q = m[i] && m[l] ? luu[i * NU + l] + acc : T(0);
+          Quu[i][l] = i == l ? q + (m[i] ? reg : T(1)) : q;
+        }
+        if (!m[i]) Qu[i] = T(0);
       }
-      riccati_chol_solve<T, NU>(L, K);
-      T a = T(0), b = T(0), c = T(0);
+      T L[NU][NU];
+      const bool ok = riccati_chol<T, NU>(Quu, L);
+      T kk[NU], Quu_k[NU];
+      riccati_gain_k<T, NU>(Quu, L, Qu, kk, Quu_k);
+      if (rank < NX)
+        riccati_tile_column<T, NX, NU>(rank, fu, lux, m, Qu, Qx, Quu, L, kk,
+                                       Quu_k, sm, Ks + s * NU * NX);
+      if (rank == 0) {
 #pragma unroll
-      for (int i = 0; i < NU; ++i) {
-        K[i] = -K[i];
-        a += K[i] * Qu[i];
-        b += qux[i] * kk[i];
-        c += K[i] * Quu_k[i];
+        for (int i = 0; i < NU; ++i) ks[s * NU + i] = kk[i];
       }
-      sm.Vx[l] = ((Qx + a) + b) + c;
-      T* Ko = Ks + s * NU * NX;
+      riccati_stats<T, NU>(kk, Qu, Quu_k, dV1, dV2, qu_inf);
+      ok_all = ok_all && ok;
+    } else {
+      RiccatiFactor<T, NU>& f = factors[threadIdx.x / W];
 #pragma unroll
-      for (int i = 0; i < NU; ++i) {
-        T acc = T(0);
+      for (int q = 0; q < cdiv(NU * NU, W); ++q) {
+        const int e = rank + q * W;
+        if (e < NU * NU) {
+          const int i = e / NU, l = e % NU;
+          T acc = T(0);
 #pragma unroll
-        for (int j = 0; j < NU; ++j) acc += Quu[i][j] * K[j];
-        sm.QK[i * NX + l] = acc;
-        sm.Qux[i * NX + l] = qux[i];
-        sm.KK[i * NX + l] = K[i];
-        Ko[i * NX + l] = K[i];
+          for (int j = 0; j < NX; ++j)
+            acc += fu[j * NU + i] * sm.VFu[j * NU + l];
+          const T v = m[i] && m[l] ? luu[e] + acc : T(0);
+          f.Quu[i][l] = i == l ? v + (m[i] ? reg : T(1)) : v;
+        }
       }
-    }
-    if (rank == 0) {
 #pragma unroll
-      for (int i = 0; i < NU; ++i) ks[s * NU + i] = kk[i];
-    }
-    T d1 = T(0), d2 = T(0), qi = T(0);
+      for (int i = 0; i < NU; ++i)
+        if (!m[i]) Qu[i] = T(0);
+      tile.sync();
+      if (rank == 0) {
+        const bool ok = riccati_chol<T, NU>(f.Quu, f.L);
+        riccati_gain_k<T, NU>(f.Quu, f.L, Qu, f.kk, f.Quu_k);
 #pragma unroll
-    for (int i = 0; i < NU; ++i) {
-      d1 += kk[i] * Qu[i];
-      d2 += kk[i] * Quu_k[i];
-      qi = i == 0 ? jabs(Qu[i]) : jmax(qi, jabs(Qu[i]));
+        for (int i = 0; i < NU; ++i) ks[s * NU + i] = f.kk[i];
+        riccati_stats<T, NU>(f.kk, Qu, f.Quu_k, dV1, dV2, qu_inf);
+        ok_all = ok_all && ok;
+      }
+      tile.sync();
+      if (rank < NX)
+        riccati_tile_column<T, NX, NU>(rank, fu, lux, m, Qu, Qx, f.Quu, f.L,
+                                       f.kk, f.Quu_k, sm, Ks + s * NU * NX);
     }
-    dV1 = dV1 + d1;
-    dV2 = dV2 + T(0.5) * d2;
-    qu_inf = jmax(qu_inf, qi);
-    ok_all = ok_all && ok;
     tile.sync();
 
     // C: Vxx = Qxx + KQ + KQ^T + K^T Quu K with KQ = K^T Qux, symmetrised
@@ -721,6 +800,8 @@ ODT_RICCATI(6, 3, f32, float)
 ODT_RICCATI(6, 3, f64, double)
 ODT_RICCATI(10, 4, f32, float)
 ODT_RICCATI(10, 4, f64, double)
+ODT_RICCATI(16, 10, f32, float)
+ODT_RICCATI(16, 10, f64, double)
 ODT_RICCATI_TILE(4, 1, f32, float)
 ODT_RICCATI_TILE(4, 1, f64, double)
 ODT_RICCATI_TILE(4, 3, f32, float)
@@ -729,4 +810,6 @@ ODT_RICCATI_TILE(6, 3, f32, float)
 ODT_RICCATI_TILE(6, 3, f64, double)
 ODT_RICCATI_TILE(10, 4, f32, float)
 ODT_RICCATI_TILE(10, 4, f64, double)
+ODT_RICCATI_TILE(16, 10, f32, float)
+ODT_RICCATI_TILE(16, 10, f64, double)
 }  // extern "C"

@@ -6,7 +6,8 @@ at ``:262``) running ``_make_body`` (``:93``) with the Cholesky solve
 ``_chol_solve_block`` (``:45``). On the main path it is the backward pass
 of every inner iteration when ``ILQROptions.riccati_kernel`` is set: B
 lanes (each lane of the phase width), T-1 = 50 steps, nx=4, nu=1 at the
-deploy width.
+cartpole deploy width; T-1 = 20, nx=16, nu=10 with a ragged ``u_mask``
+at the hopper's.
 
 What bounds it on an H100: latency. At the deploy shape a lane reads
 about 10 KB (fx, fu and the cost expansion of 50 steps) and does about
@@ -23,7 +24,11 @@ one scenario's dependent chain, loads included. Two kernels, picked by
   three stages with a tile sync after each: VF = Vxx fx, Vxx fu (an
   element a thread), Qx and Qu; then Qxx (an element a thread), Quu and
   its Cholesky on every thread alike (nu <= 4), and the gains a column a
-  thread; then the symmetrised Vxx (an element a thread). The next step's inputs are loaded into registers while the
+  thread; then the symmetrised Vxx (an element a thread). Above 4
+  controls (the hopper's (16, 10): 200 values of Quu and its factor a
+  thread would spill) Quu is formed an element a thread in the tile's
+  shared slab, one thread factors it there and forms k, and the column
+  owners read the factor: two syncs more a step. The next step's inputs are loaded into registers while the
   step computes (neighbouring threads, neighbouring words) and stored to
   the slab at its end, so the loads leave the dependent chain. One
   thread a scenario, the alternative, puts 512 scenarios on 16 warps of

@@ -18,6 +18,8 @@ from optimization_dynamics_tpu_torch.models.acrobot import (AcrobotAux,
                                                             AcrobotParams)
 from optimization_dynamics_tpu_torch.models.cartpole import (CartpoleAux,
                                                              CartpoleParams)
+from optimization_dynamics_tpu_torch.models.hopper import (HopperAux,
+                                                           HopperParams)
 from optimization_dynamics_tpu_torch.models.planar_push import (
     PlanarPushAux,
     PlanarPushParams,
@@ -26,7 +28,9 @@ from optimization_dynamics_tpu_torch.solver.ilqr import ILQROptions
 from optimization_dynamics_tpu_torch.solver.interior_point import IPOptions
 
 __all__ = ["cartpole_params", "cartpole_aux", "planar_push_params",
-           "planar_push_aux", "acrobot_params", "acrobot_aux", "ip_options", "ilqr_options", "al_state"]
+           "planar_push_aux", "acrobot_params", "acrobot_aux",
+           "hopper_params", "hopper_aux", "ip_options", "ilqr_options",
+           "al_state"]
 
 
 def cartpole_params(p) -> CartpoleParams:
@@ -66,6 +70,22 @@ def acrobot_aux(a, device, dtype) -> AcrobotAux:
     0-dim tensor of ``dtype`` on ``device``."""
     return AcrobotAux(h=torch.as_tensor(np.array(a.h), dtype=dtype,
                                         device=device))
+
+
+def hopper_params(p) -> HopperParams:
+    """The port's ``HopperParams`` from the reference's."""
+    return HopperParams(*(float(getattr(p, f))
+                          for f in HopperParams._fields))
+
+
+def hopper_aux(a, device, dtype) -> HopperAux:
+    """The port's ``HopperAux`` from the reference's: the timestep as a
+    0-dim tensor and the friction coefficients (None: the params') as a
+    (2,) tensor, both of ``dtype`` on ``device``."""
+    fr = None if a.friction is None else torch.as_tensor(
+        np.array(a.friction), dtype=dtype, device=device)
+    return HopperAux(h=torch.as_tensor(np.array(a.h), dtype=dtype,
+                                       device=device), friction=fr)
 
 
 def _options(src, cls, renames=None):

@@ -24,6 +24,8 @@ inputs, so two checkouts that both have this module time the same work:
   over the swing-up envelope, and their warm starts one iterate earlier
   (the derivative sweep's);
 * ``push_batch``: cold planar-push IP solves around the nominal pose;
+* ``hopper_systems``: K2's inputs at the hopper's shapes, the Newton
+  and IFT systems of a derivative sweep;
 * ``rollout_batch``: K4's inputs at the cartpole deploy's shapes;
 * ``lqr_batch``: K3's inputs, random LQR data;
 * ``grow_batch``: a batch repeated to a wider width (a cut's far side,
@@ -43,8 +45,8 @@ import torch
 __all__ = ["nvidia_smi", "cuda_ms", "device_ms", "launch_ms",
            "kernel_route", "routed", "cut_routed", "rel_residual",
            "ift_systems", "interleave_rows", "envelope_batch",
-           "warm_batch", "push_batch", "rollout_batch", "lqr_batch",
-           "grow_batch"]
+           "warm_batch", "push_batch", "hopper_systems", "rollout_batch",
+           "lqr_batch", "grow_batch"]
 
 
 def nvidia_smi() -> str:
@@ -227,6 +229,39 @@ def push_batch(B: int, seed: int, device, dtype):
         t(q0), q1_t, t(u), pp.PlanarPushAux(h=0.1))
 
 
+def hopper_systems(B: int, seed: int, device, dtype):
+    """The hopper's K2 systems over its gait: B (q0, q1, u) around the
+    standing pose, in flight and on the ground (q1 = [0, 0.55, 0, 0.5] +
+    [0.1, 0.1, 0.2, 0.1] N(0, 1), q0 = q1 - 0.01 N(0, 1), u = N(0, 1),
+    from a numpy seed), solved by ``make_solver_batched`` at the deploy's
+    accelerator IP options. Returns ``(newton, ift)``: the first Newton
+    step's systems (dr/dz at the cold start, its residual at kappa 0.1;
+    (B, 20, 20), (B, 20, 1)) and the IFT systems at the solutions (dr/dz,
+    dr/dtheta; (B, 20, 20), (B, 20, 13)), the Jacobians row-interleaved
+    as ``batched_jacobian`` gives them to the solver and the sweep."""
+    from optimization_dynamics_tpu_torch.examples import hopper as ex
+    from optimization_dynamics_tpu_torch.models import hopper
+    from optimization_dynamics_tpu_torch.solver.interior_point import (
+        IPOptions, batched_jacobian, make_solver_batched)
+
+    rng = np.random.default_rng(seed)
+    q1 = (np.array([0.0, 0.55, 0.0, 0.5])
+          + np.array([0.1, 0.1, 0.2, 0.1]) * rng.standard_normal((B, 4)))
+    q0 = q1 - 0.01 * rng.standard_normal((B, 4))
+    u = rng.standard_normal((B, 2))
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    model = hopper.model()
+    ths = model.theta_fn(t(q0), t(q1), t(u), hopper.HopperAux(h=ex.H))
+    z0s = model.init_z(t(q1))
+    zs = make_solver_batched(model.residual, model.spec,
+                             IPOptions(**ex.DEPLOY_IP_ACCEL), device,
+                             dtype)(z0s, ths).z
+    jz = batched_jacobian(model.residual, 0)
+    newton = (jz(z0s, ths), model.residual(z0s, ths, 0.1)[..., None])
+    ift = (jz(zs, ths), batched_jacobian(model.residual, 1)(zs, ths))
+    return newton, ift
+
+
 def rollout_batch(B: int, seed: int, device, dtype):
     """K4's inputs at the cartpole deploy's shapes (T=51): ``(x0s, uss,
     Kss, kss, alphas)``, x0s from ``deploy_x0s``, controls around the
@@ -252,7 +287,9 @@ def rollout_batch(B: int, seed: int, device, dtype):
 def lqr_batch(seed: int, B: int, T: int, nx: int, nu: int, device, dtype):
     """Random LQR data (fxs, fus, lxs, lus, lxxs, luus, luxs, gTs, HTs,
     regs) from a numpy seed, drawn as the reference's Riccati kernel test
-    draws it."""
+    draws it at its nx=4; fx is N(0, 1) / sqrt(nx) at any nx (0.5 N(0, 1)
+    at nx=4), so its spectral radius stays about 1 and Vxx does not grow
+    geometrically over the horizon at the hopper's nx=16."""
     rng = np.random.default_rng(seed)
     n = lambda *s: rng.standard_normal(s)
 
@@ -261,7 +298,7 @@ def lqr_batch(seed: int, B: int, T: int, nx: int, nu: int, device, dtype):
         return np.einsum("btij,btkj->btik", A, A) + 0.5 * np.eye(m)
 
     A = n(B, nx, nx)
-    data = [0.5 * n(B, T - 1, nx, nx), 0.5 * n(B, T - 1, nx, nu),
+    data = [n(B, T - 1, nx, nx) / np.sqrt(nx), 0.5 * n(B, T - 1, nx, nu),
             n(B, T - 1, nx), n(B, T - 1, nu), spd(nx), spd(nu),
             0.3 * n(B, T - 1, nu, nx), n(B, nx),
             np.einsum("bij,bkj->bik", A, A) + np.eye(nx), np.full(B, 1e-6)]

@@ -144,7 +144,10 @@ def test_k2_k3_tile_widths_fit():
     two >= n + k, ``solve_tile_width``) and K3's the nx columns of the
     gains (an element of the nx x nx updates a thread, capped at a warp,
     ``riccati_tile_width``), each within a warp and whole to a block: N +
-    K <= W <= 32 and NX <= W <= 32, powers of two."""
+    K <= W <= 32 and NX <= W <= 32, powers of two. Above
+    ``RICCATI_TILE_LANE_NU`` controls K3's tile factors Quu once in a
+    shared slab, and a block's float64 slabs stay within the 48 KB of
+    static shared memory."""
     solve = (_build.CSRC / "batched_solve.cu").read_text()
     assert re.search(r"while \(w < N \+ K\) w \*= 2;", solve)
     sblock = int(re.search(r"constexpr int SOLVE_TILE_BLOCK = (\d+);",
@@ -161,13 +164,22 @@ def test_k2_k3_tile_widths_fit():
         widths[n, k] = w
     assert widths == {(2, 1): 4, (2, 6): 8, (6, 6): 16, (10, 1): 16,
                       (10, 8): 32}
+    lane_nu = int(re.search(r"constexpr int RICCATI_TILE_LANE_NU = (\d+);",
+                            ric)[1])
+    assert lane_nu == 4
     widths = {}
     for nx, nu in _build.RICCATI_SHAPES:
         w = min(32, _pow2_at_least(nx * nx))
         assert nx <= w <= 32 and w & (w - 1) == 0 and rblock % w == 0
-        assert nu <= 4
+        # RiccatiSlab (one step's inputs, Vx, Vxx, VF, VFu, Qxx, Qux, KK,
+        # QK), and above lane_nu RiccatiFactor (Quu, L, k, Quu k)
+        slab = (2 * nx * nx + 2 * nx * nu + nx + nu + nu * nu
+                + nx + 3 * nx * nx + nx * nu + 3 * nu * nx)
+        if nu > lane_nu:
+            slab += 2 * nu * nu + 2 * nu
+        assert 8 * slab * (rblock // w) <= 48 * 1024, (nx, nu)
         widths[nx] = w
-    assert widths == {4: 16, 6: 32, 10: 32}
+    assert widths == {4: 16, 6: 32, 10: 32, 16: 32}
 
 
 @pytest.mark.parametrize("kind", ["batched_solve", "riccati"])

@@ -22,7 +22,8 @@ and z compared in float64 where both converge in the same iteration
 count; K2 at (35, 13) within 1e-10 relative in float64 and 1e-3 in
 float32. K1a (the fused IP solve at nz=6, acrobot) as K1 in float64 with
 identical flags and iteration counts; K2 at (6, 6), (2, 1) and (2, 6) as
-at (10, 8). K5 (the loop-overhead probe) within float32 atol 1e-4 of its
+at (10, 8); at the hopper's (20, 1) and (20, 13) on its own Newton and
+IFT systems. K5 (the loop-overhead probe) within float32 atol 1e-4 of its
 plain version in every variant (it rounds each product and sum as the
 plain loop does, so it is expected to agree bit for bit). K1's tile
 kernel (a 16-thread tile a scenario, launches up to 16,384 scenarios) in
@@ -50,7 +51,9 @@ float64 the two are compared bit for bit. K2's do not agree bit for bit:
 nvcc computes some of the per-thread kernel's squares once and adds them
 where the tile kernel fuses each into an FMA (PERF.md section 6), so in
 float64 the two are held within 1e-10 of each other, relative, as each
-is to the plain version.
+is to the plain version. K3 at the hopper's (16, 10), whose tile kernel
+factors Quu once in shared memory, with the hopper's ragged mask and an
+indefinite Quu on every fifth lane, as at the other shapes.
 """
 
 import numpy as np
@@ -61,6 +64,7 @@ from optimization_dynamics_tpu_torch.examples.cartpole import (
     DEPLOY_IP_ACCEL,
 )
 from optimization_dynamics_tpu_torch.examples import acrobot as acrobot_ex
+from optimization_dynamics_tpu_torch.examples import hopper as hopper_ex
 from optimization_dynamics_tpu_torch.examples import planar_push as push_ex
 from optimization_dynamics_tpu_torch.models import cartpole
 from optimization_dynamics_tpu_torch.models import planar_push
@@ -99,6 +103,7 @@ from optimization_dynamics_tpu_torch.utils.measure import (
     cut_routed,
     grow_batch,
     interleave_rows,
+    lqr_batch,
     push_batch,
     rel_residual,
     rollout_batch,
@@ -1054,7 +1059,8 @@ def _riccati_routes(data, mask, nx, nu):
 @pytest.mark.parametrize("nx,nu,T,ragged", [(4, 1, 51, False),
                                             (4, 3, 6, True),
                                             (6, 3, 7, True),
-                                            (10, 4, 5, False)])
+                                            (10, 4, 5, False),
+                                            (16, 10, 4, True)])
 def test_riccati_tile_kernel_matches_plain(card, dtype, tol, nx, nu, T,
                                            ragged):
     """K3's tile and per-thread kernels against the plain version at every
@@ -1127,3 +1133,96 @@ def test_riccati_kernels_route_by_width(card):
         assert riccati_backward.widths[route, B] == width + 1
     assert all(torch.equal(a, b[:limit]) for a, b in zip(got[limit],
                                                          got[limit + 1]))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("B", [256, 253])
+def test_riccati_hopper_shape_matches_plain(card, dtype, tol, B):
+    """K3 at (16, 10), T=21, with the hopper's mask and, on every fifth
+    lane, a Quu at t=0 whose last pivot is negative: each kernel (the
+    tile's Quu factored once in its slab) against the plain version,
+    ``ok`` identical, masked gains exactly 0; in float64 the two kernels
+    agree bit for bit. The data is ``lqr_batch``'s, whose fx keeps a
+    spectral radius of about 1 (``_rand_lqr``'s 0.5 N(0, 1) has about 2
+    at nx=16, so Vxx grows some 4^20-fold over the horizon)."""
+    nx, nu, T = 16, 10, 21
+    data = lqr_batch(40, B, T, nx, nu, card, dtype)
+    bad = torch.zeros(B, dtype=torch.bool, device=card)
+    bad[::5] = True
+    data[5][bad, 0, nu - 1, nu - 1] = -1.0e4
+    mask = hopper_ex.control_mask(card).to(dtype)
+    got = _riccati_routes(data, mask, nx, nu)
+    ref = riccati_backward_plain(*data, mask)
+    for g in got.values():
+        assert torch.equal(g[5], ref[5]) and torch.equal(g[5], ~bad)
+        assert bool(torch.isfinite(g[0]).all() & torch.isfinite(g[1]).all())
+        good = ~bad
+        assert _riccati_rel([a[good] for a in g],
+                            [a[good] for a in ref]) <= tol
+        assert (g[0][:, 1:, 2:] == 0).all() and (g[1][:, 1:, 2:] == 0).all()
+    if dtype == torch.float64:
+        assert all(torch.equal(a, b) for a, b in zip(got["tile"],
+                                                     got["thread"]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("k", [1, 13])
+def test_batched_solve_hopper_shapes_match_plain(card, dtype, k):
+    """K2 at (20, 1) and (20, 13) (a 64-thread block a system) on the
+    hopper's own systems, dr/dz at IP solutions of hopper states with the
+    residual or dr/dtheta, row-interleaved as the sweep passes them:
+    relative residual <= 1e-12 in float64 (x within 1e-10 of the plain
+    version's, relative) and <= 1e-5 in float32."""
+    from optimization_dynamics_tpu_torch.models import hopper
+    from optimization_dynamics_tpu_torch.solver import interior_point as tip
+
+    rng = np.random.default_rng(41)
+    B = 300
+    q1 = np.array([0.0, 0.55, 0.0, 0.5]) + 0.05 * rng.standard_normal(
+        (B, 4))
+    q0 = q1 - 0.01 * rng.standard_normal((B, 4))
+    u = rng.standard_normal((B, 2))
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=card)
+    model = hopper.model()
+    ths = model.theta_fn(t(q0), t(q1), t(u), hopper.HopperAux(h=0.05))
+    zs = tip.make_solver_batched(model.residual, model.spec,
+                                 IPOptions(**hopper_ex.DEPLOY_IP_ACCEL),
+                                 card, dtype)(model.init_z(t(q1)), ths).z
+    A = tip.batched_jacobian(model.residual, 0)(zs, ths)
+    b = (tip.batched_jacobian(model.residual, 1)(zs, ths) if k == 13
+         else model.residual(zs, ths, 1e-3)[..., None])
+    assert A.stride()[:2] == (20, B * 20)
+    before = batched_solve.shapes[20, k]
+    x = batched_solve(A, b)
+    assert batched_solve.shapes[20, k] == before + 1
+    xp = batched_solve_plain(A, b)
+    if dtype == torch.float64:
+        assert rel_residual(A, x, b) <= 1e-12
+        assert _rel(x, xp) <= 1e-10
+    else:
+        assert rel_residual(A, x, b) <= 1e-5
+
+
+def test_hopper_deploy_launches_k2_and_k3(card):
+    """One inner iteration of the hopper deploy (float32, B=8) with K3:
+    K2 runs its group kernel at (20, 1) and (20, 13), K3 its tile kernel
+    at (16, 10), and the outputs are finite."""
+    import dataclasses
+
+    from optimization_dynamics_tpu_torch.solver.ilqr_segmented import (
+        make_segmented_solver,
+    )
+
+    ex = hopper_ex
+    prob, x0, us0, opts = ex.build_deploy_problem(card)
+    opts = dataclasses.replace(opts, max_al_iter=1, riccati_kernel=True)
+    solve = make_segmented_solver(prob, opts, 8, x0.dtype, card,
+                                  max_iter_schedule=[1])
+    shapes = dict(batched_solve.shapes)
+    tiles = riccati_backward.tile_launches
+    res = solve(ex.deploy_x0s(x0, 8, seed=0), us0)
+    assert bool(torch.isfinite(res.xs).all() & torch.isfinite(res.us).all())
+    for nk in ((20, 1), (20, 13)):
+        assert batched_solve.shapes[nk] > shapes.get(nk, 0), nk
+    assert riccati_backward.tile_launches == tiles + 1

@@ -12,6 +12,7 @@ from optimization_dynamics_tpu_torch.ops.kernels._build import (
 )
 from optimization_dynamics_tpu_torch.utils.measure import (
     envelope_batch,
+    hopper_systems,
     kernel_route,
     push_batch,
     rel_residual,
@@ -33,6 +34,24 @@ def test_batches_follow_their_seed(make, nz, nth):
     assert torch.equal(z0, z0b) and torch.equal(th, thb)
     assert not torch.equal(th, thc)
     assert torch.isfinite(z0).all() and torch.isfinite(th).all()
+
+
+def test_hopper_systems_follow_their_seed_and_layout():
+    """The hopper's Newton (20, 1) and IFT (20, 13) systems: the same for
+    the same seed, row-interleaved as ``batched_jacobian`` gives them,
+    finite and solvable."""
+    (An, bn), (Ai, bi) = hopper_systems(6, 0, CPU, torch.float64)
+    (An2, bn2), (Ai2, bi2) = hopper_systems(6, 0, CPU, torch.float64)
+    _, (Ai3, _) = hopper_systems(6, 1, CPU, torch.float64)
+    assert (tuple(An.shape), tuple(bn.shape)) == ((6, 20, 20), (6, 20, 1))
+    assert (tuple(Ai.shape), tuple(bi.shape)) == ((6, 20, 20), (6, 20, 13))
+    assert An.stride() == Ai.stride() == (20, 120, 1)
+    assert bi.stride() == (13, 78, 1)
+    for a, b in ((An, An2), (bn, bn2), (Ai, Ai2), (bi, bi2)):
+        assert torch.equal(a, b) and bool(torch.isfinite(a).all())
+    assert not torch.equal(Ai, Ai3)
+    for A, b in ((An, bn), (Ai, bi)):
+        assert rel_residual(A, torch.linalg.solve(A, b), b) <= 1e-13
 
 
 def test_warm_batch_starts_from_the_earlier_solution():

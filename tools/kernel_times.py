@@ -1,7 +1,7 @@
 """Time the port's kernels on the card (K1, K1a, K1n, K4, K2 at (35, 13),
-(10, 8) and (6, 6), K3), to compare two checkouts in one call, and each
-two-kernel pair's narrow kernel (tile or group) against its per-thread
-kernel by width.
+(10, 8), (6, 6), (20, 1) and (20, 13), K3), to compare two checkouts in
+one call, and each two-kernel pair's narrow kernel (tile or group)
+against its per-thread kernel by width.
 
 Run on a machine with one CUDA card:
 
@@ -38,8 +38,12 @@ Through the wrapper's own choice of kernel, float32:
   be queued). The systems are laid out as the derivative sweep passes
   them (``batched_jacobian``'s row-interleaved strides), so a wrapper
   that copies them to contiguous memory is timed with its copy;
+* K2 at the hopper's (20, 1) and (20, 13) on the 5,120 Newton and IFT
+  systems of a hopper sweep (``hopper_systems`` seed 50, phase 12's),
+  beside ``torch.linalg.solve``;
 * K3 at nx=4, nu=1, T=51 on 512 lanes (``lqr_batch`` seed 10) and 25,600
-  (seed 11), phase 4's inputs;
+  (seed 11), phase 4's inputs; at the hopper's (16, 10), T=21, on 256
+  lanes (seed 51, the hopper's ``u_mask``), phase 12's;
 * an empty kernel's launch (``launch_ms``), the floor under any launch.
 
 At each of ``--widths``, ``--model``'s fused IP solve (K1, K1a or K1n)
@@ -53,9 +57,10 @@ width. At each of ``--linalg-widths``, K3 (4, 1) and K2 at (10, 8) and
 set for the call), on the inputs above repeated to the width (K2's
 interleaved row by row as above); K3 at (10, 4) too, on 2,048 lanes of
 ``lqr_batch`` seed 12 repeated, at the widths up to 102,400 (its
-inputs take 62 kB a lane). That is where each cut is measured; a
-checkout without the tables (before the tile kernels) skips this
-sweep.
+inputs take 62 kB a lane), and K3 at (16, 10) on the 256 hopper lanes
+repeated, up to 102,400 (77 kB a lane). That is where each cut is
+measured; a checkout without the tables (before the tile kernels) skips
+this sweep, and one without the hopper's shapes skips them.
 
 ``ms`` is the median of CUDA events around one call over ``--reps``
 calls after a warm-up, host work inside the call included, the time a
@@ -212,6 +217,10 @@ def main(argv=None) -> None:
     systems[6, 6] = m.ift_systems(akern, am, az, ath)
     for (n, k), (A, b) in systems.items():
         out["k2_%d_%d" % (n, k)] = time_solve(A, b)
+    hopper = (20, 1) in _build.BATCHED_SOLVE_SHAPES
+    if hopper:
+        for (A, b) in m.hopper_systems(5120, 50, dev, f32):
+            out["k2_20_%d" % b.shape[2]] = time_solve(A, b)
 
     # K3 at the deploy shape, phase 4's inputs
     mask = torch.ones((50, 1), dtype=f32, device=dev)
@@ -222,6 +231,16 @@ def main(argv=None) -> None:
             ms=m.cuda_ms(lambda: riccati_backward(*data, mask),
                          reps=args.reps),
             ms_device=m.device_ms(lambda: riccati_backward(*data, mask),
+                                  reps=args.reps))
+    if hopper:
+        from optimization_dynamics_tpu_torch.examples import hopper as hop
+
+        mask16 = hop.control_mask(dev).to(f32)
+        lqr16 = m.lqr_batch(51, 256, hop.T, 16, 10, dev, f32)
+        out["k3_16_10_256"] = dict(
+            ms=m.cuda_ms(lambda: riccati_backward(*lqr16, mask16),
+                         reps=args.reps),
+            ms_device=m.device_ms(lambda: riccati_backward(*lqr16, mask16),
                                   reps=args.reps))
     out["empty_launch"] = m.launch_ms()
 
@@ -247,6 +266,12 @@ def main(argv=None) -> None:
                 out["k3_10_4_sweep_%d" % w] = both(
                     _build.RICCATI_TILE_MAX_B, (10, 4), riccati_backward,
                     *data, mask4)
+                del data
+            if hopper and w <= 102400:
+                data = m.grow_batch(lqr16, w)
+                out["k3_16_10_sweep_%d" % w] = both(
+                    _build.RICCATI_TILE_MAX_B, (16, 10), riccati_backward,
+                    *data, mask16)
                 del data
             for (n, k), ab in systems.items():
                 out["k2_%d_%d_sweep_%d" % (n, k, w)] = both(

@@ -1,5 +1,5 @@
 """Card measurements of the port's deploy solves (cartpole, planar push,
-acrobot).
+acrobot, hopper).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -12,18 +12,21 @@ Run from the repository root on a machine with one CUDA card:
     python -m tools.torch_measure profile --model planar_push
     python -m tools.torch_measure deploy --model acrobot [--dtype f64]
     python -m tools.torch_measure profile --model acrobot
+    python -m tools.torch_measure deploy|profile --model hopper \
+        [--riccati-kernel]
 
-``deploy`` runs the example's deploy solve (``examples/cartpole.py`` or
-``examples/planar_push.py``, ``examples/acrobot.py``, ``main
---deploy``), which prints its own summary, then prints one JSON line: the
-K1 (K1n for push, K1a for acrobot), K2, K3 and K4 launches of the solve,
-each one's launches by kernel (tile, group, or per-thread) and width,
-the mean and
-median converged objective and, with ``--lanes``, each lane's flag,
+``deploy`` runs the example's deploy solve (``examples/cartpole.py``,
+``examples/planar_push.py``, ``examples/acrobot.py`` or
+``examples/hopper.py``, ``main --deploy``), which prints its own
+summary, then prints one JSON line: the K1 (K1n for push, K1a for
+acrobot), K2, K3 and K4 launches of the solve, each one's launches by
+kernel (tile, group, or per-thread) and width, K2's by (n, k), the mean
+and median converged objective and, with ``--lanes``, each lane's flag,
 objective and inner iterations. The batch defaults to the deploy width:
-512 for cartpole, 256 for push and acrobot. ``--fused-rollout`` and
-``--riccati-kernel`` (cartpole only) turn on K4 and K3, as the
-example's flags of the same names do: the K3+K4 cell.
+512 for cartpole, 256 for push, acrobot and hopper. ``--fused-rollout``
+(cartpole only) and ``--riccati-kernel`` (cartpole and hopper) turn on
+K4 and K3, as the example's flags of the same names do: the K3+K4 cell,
+the hopper's K3 cell.
 
 ``profile`` solves one AL round of five inner iterations at the deploy
 width in float32 three times after a warm-up: unprofiled (wall), under
@@ -41,6 +44,7 @@ import io
 import json
 import os
 import pstats
+import re
 import tempfile
 import time
 
@@ -80,7 +84,7 @@ def _example(args):
     ex = importlib.import_module("optimization_dynamics_tpu_torch.examples."
                                  + args.model)
     return ex, args.batch or {"cartpole": 512, "planar_push": 256,
-                              "acrobot": 256}[args.model]
+                              "acrobot": 256, "hopper": 256}[args.model]
 
 
 def deploy(args) -> None:
@@ -90,6 +94,7 @@ def deploy(args) -> None:
         c.launches = 0
         c.widths.clear()
     k1, k2, k4, k3 = counters
+    k2.shapes.clear()
     res = ex.main(["--deploy", "--device", "cuda", "--dtype", args.dtype,
                    "--batch", str(B)] + _kernel_flags(args))
     conv = res.converged.cpu().numpy()
@@ -105,6 +110,8 @@ def deploy(args) -> None:
                fused_ip_widths=_by_width(k1.widths),
                fused_rollout_widths=_by_width(k4.widths),
                batched_solve_widths=_by_width(k2.widths),
+               batched_solve_shapes={"%d_%d" % nk: n for nk, n in
+                                     sorted(k2.shapes.items())},
                riccati_widths=_by_width(k3.widths),
                mean_obj_converged=(float(obj[conv].mean())
                                    if conv.any() else None),
@@ -154,6 +161,11 @@ def _kernel_label(name: str) -> str:
             if label.startswith("fused_ip"):
                 label = ("K1n " if "PlanarPush" in name else "K1a "
                          if "AcrobotImpact" in name else "K1 ") + label
+            elif label.startswith(("K2", "K3")):
+                # the shape: the template's (N, K) or (NX, NU)
+                shape = re.search(r"<(?:float|double), (\d+), (\d+)>", name)
+                if shape:
+                    label += " (%s, %s)" % shape.groups()
             return label
     return "torch: " + name[:70]
 
@@ -233,15 +245,17 @@ def main(argv=None) -> None:
     pr = sub.add_parser("profile")
     for p in (d, pr):
         p.add_argument("--model",
-                       choices=("cartpole", "planar_push", "acrobot"),
+                       choices=("cartpole", "planar_push", "acrobot",
+                                "hopper"),
                        default="cartpole")
         p.add_argument("--fused-rollout", action="store_true")
         p.add_argument("--riccati-kernel", action="store_true")
     pr.set_defaults(batch=None)
     args = ap.parse_args(argv)
-    if (args.fused_rollout or args.riccati_kernel) and \
-            args.model != "cartpole":
-        ap.error("--fused-rollout and --riccati-kernel are cartpole's")
+    if args.fused_rollout and args.model != "cartpole":
+        ap.error("--fused-rollout is cartpole's")
+    if args.riccati_kernel and args.model not in ("cartpole", "hopper"):
+        ap.error("--riccati-kernel is cartpole's and the hopper's")
     if not torch.cuda.is_available():
         raise SystemExit("torch_measure: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
