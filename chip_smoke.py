@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``optimization_dynamics_tpu_torch/ops/
-kernels/csrc`` and runs fourteen phases, each printing one ``#`` line:
+kernels/csrc`` and runs sixteen phases, each printing one ``#`` line:
 
 0. card: ``nvidia-smi`` name and power limit, torch and CUDA versions,
    kernel build time in all and per source, and what ``ptxas`` reported
@@ -150,7 +150,29 @@ kernels/csrc`` and runs fourteen phases, each printing one ``#`` line:
    K3 launched only in the second run and on the kernel its width picks
    (launches by kernel, shape and width printed); then the four-lane
    float64 card-against-CPU check of phase 3 with the same backward
-   pass.
+   pass;
+14. K2 at the rocket's (10, 1), (10, 4), (12, 1) and (12, 16) against its
+   plain version on the rocket's own systems (``rocket_systems``, numpy
+   seed 60: the deploy's x0 scatter, thrusts inside, outside and above
+   the cone; the thrust projection's first Newton step from its cold
+   start and its IFT systems at its solutions, the midpoint solve's from
+   y = x and at its solutions; the Jacobians row-interleaved as the
+   solver and the sweep pass them) at the sweep's width 15,360 (B x
+   (T-1) at B=256) and the Newton systems at a rollout's 512 too,
+   through the wrapper's route and each of its two kernels (tile,
+   per-thread), forced by the width cut, x bit for bit from contiguous
+   and row-interleaved systems, relative residual <= 1e-12 in float64
+   and <= 1e-5 in float32; float32 timed through each kernel and the
+   route, one call and queued, beside the plain version and
+   ``torch.linalg.solve``, with the bound;
+15. the rocket main path at full width: the rocket deploy problem
+   (projection mode, float32, T=61) solved by the segmented executor at
+   B=256 for one AL round of three inner iterations; outputs finite, the
+   objective and the constraint violation below the open-loop rollout's
+   on most lanes, every lane's projected thrust in the cone, K2 launched
+   at its four shapes and only there, each launch on the kernel its
+   width picks (launches by shape, kernel and width printed); then the
+   four-lane float64 card-against-CPU check of phase 3.
 
 The kernels' designs are in their wrappers' docstrings
 (``ops/kernels/*.py``). K1 (cartpole), K1a (acrobot) and K4 (cartpole's
@@ -223,7 +245,13 @@ beside its bound; ``batched_solve_n20_k1`` and ``batched_solve_n20_k13``
 are K2 on phase 12's 5,120 hopper Newton and IFT systems, with their
 launches from phase 13's eager run; ``riccati_n16_u10`` and
 ``riccati_n16_u10_tile`` K3's per-thread and tile kernels at (16, 10) on
-256 lanes, with their launches from phase 13's K3 run). The last line
+256 lanes, with their launches from phase 13's K3 run;
+``batched_solve_n10_k1``, ``batched_solve_n10_k4``,
+``batched_solve_n12_k1`` and ``batched_solve_n12_k16`` are K2 on phase
+14's 15,360 rocket systems at each shape, ``ms`` and ``ms_device``
+through the kernel the width picks (``kernel``), each kernel's forced
+times beside them, with their launches from phase 15, in all and by
+kernel). The last line
 is ``{"ok": true,
 "device": {...}}``. It needs one card and no network.
 """
@@ -240,8 +268,8 @@ import numpy as np
 from optimization_dynamics_tpu_torch.utils.measure import (
     cuda_ms, cut_routed, device_ms, envelope_batch, grow_batch,
     hopper_systems, ift_systems, interleave_rows, launch_ms, lqr_batch,
-    nvidia_smi, push_batch, rel_residual, rollout_batch, routed,
-    warm_batch)
+    nvidia_smi, push_batch, rel_residual, rocket_systems, rollout_batch,
+    routed, warm_batch)
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
@@ -1640,6 +1668,172 @@ def phase_hopper(device) -> dict:
             "riccati_kernel": _hopper_solve(device, True)}
 
 
+ROCKET_K2_CASES = (("proj_newton_512", (10, 1), 512),
+                   ("proj_newton_15360", (10, 1), 15360),
+                   ("proj_ift_15360", (10, 4), 15360),
+                   ("dyn_newton_512", (12, 1), 512),
+                   ("dyn_newton_15360", (12, 1), 15360),
+                   ("dyn_ift_15360", (12, 16), 15360))
+
+
+def phase_rocket_kernels(device) -> dict:
+    """K2 at the rocket's (10, 1), (10, 4), (12, 1) and (12, 16) on its own
+    systems (``utils/measure.py::rocket_systems``, numpy seed 60: the
+    deploy's x0 scatter, 15,360 = B x (T-1) at B=256, the sweep's width;
+    the Newton systems also at 512, a rollout's width), through the
+    wrapper's route and through each of its two kernels, forced by the
+    cut, against the plain version; see the module docstring for the
+    tolerances."""
+    import torch
+
+    from optimization_dynamics_tpu_torch.ops.kernels._build import (
+        batched_solve_route)
+    from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
+        batched_solve, batched_solve_plain)
+
+    out = {}
+    for dtype, res_tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        name = "f64" if dtype == torch.float64 else "f32"
+        systems = rocket_systems(15360, 60, device, dtype)
+        res = {}
+        for case, (n, k), B in ROCKET_K2_CASES:
+            A, b = (t[:B] for t in systems[n, k])
+            xk = batched_solve(A, b)
+            xp = batched_solve_plain(A, b)
+            torch.cuda.synchronize()
+            _check(bool(torch.isfinite(xk).all()), "K2 %s %s: x not finite"
+                   % (name, case))
+            rk = rel_residual(A, xk, b)
+            _check(rk <= res_tol, "K2 %s %s relative residual %.3e"
+                   % (name, case, rk))
+            dx = float((xk - xp).abs().max())
+            timed = dtype == torch.float32
+            r = dict(rel_res=rk, rel_res_plain=rel_residual(A, xp, b),
+                     max_dx=dx, rel_dx=dx / float(xp.abs().max()),
+                     route=batched_solve_route(n, k, B),
+                     routes=_k2_routes(A, b, xp, res_tol,
+                                       "%s %s" % (name, case), timed))
+            if timed:
+                r["ms"] = cuda_ms(lambda: batched_solve(A, b))
+                r["ms_device"] = device_ms(lambda: batched_solve(A, b))
+                r["plain_ms"] = cuda_ms(lambda: batched_solve_plain(A, b))
+                # the one PyTorch call that computes the same function
+                # (timed only; the port never calls it)
+                r["library_ms"] = cuda_ms(lambda: torch.linalg.solve(A, b))
+                r.update(_bound(2 * _nbytes(b) + _nbytes(A),
+                                B * (4.0 / 3.0 * n ** 3 + 3 * n ** 2 * k)))
+            res[case] = r
+        out[name] = res
+    return out
+
+
+def phase_rocket(device) -> dict:
+    """The rocket deploy solve at full width (B=256, T=61, float32) for
+    one AL round of at most three inner iterations, then the four-lane
+    float64 card-against-CPU check; see the module docstring."""
+    import torch
+
+    from optimization_dynamics_tpu_torch.examples import rocket as ex
+    from optimization_dynamics_tpu_torch.ops.kernels._build import (
+        BATCHED_SOLVE_TILE_MAX_B)
+    from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
+        batched_solve)
+    from optimization_dynamics_tpu_torch.solver.ilqr_batched import (
+        make_phases)
+    from optimization_dynamics_tpu_torch.solver.ilqr_segmented import (
+        make_segmented_solver)
+
+    B = 256
+    prob, x0, us0, opts = ex.build_deploy_problem(device)
+    _check(x0.dtype == torch.float32, "rocket deploy dtype on the card is "
+           "f32")
+    opts = dataclasses.replace(opts, max_al_iter=1)
+    x0s = ex.deploy_x0s(x0, B, seed=0)
+    ph = make_phases(prob, opts, B, x0.dtype, device)
+    uss0 = us0[None].expand(B, -1, -1)
+    xss0, _ = ph.rollout_open(x0s, uss0)
+    # with almost no thrust the rocket falls through the pad: the solve
+    # lowers the cost and the ground and terminal violations
+    obj0 = ph.smooth_cost(xss0, uss0)
+    vio0 = ph.con_violation(xss0, uss0)
+    solve = make_segmented_solver(prob, opts, B, x0.dtype, device,
+                                  max_iter_schedule=[3],
+                                  al_stall_rounds=ex.DEPLOY_AL_STALL_ROUNDS)
+
+    _zero_counts(batched_solve)
+    batched_solve.shapes.clear()
+    batched_solve.shape_widths.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve(x0s, us0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"batched_solve_n%d_k%d" % nk: c
+                for nk, c in sorted(batched_solve.shapes.items())}
+    shape_widths = dict(batched_solve.shape_widths)
+
+    for name in ("xs", "us", "objective", "al_objective",
+                 "constraint_violation", "lam", "lamT", "rho"):
+        _check(bool(torch.isfinite(getattr(res, name)).all()),
+               "rocket path: %s not finite" % name)
+    _check(tuple(res.xs.shape) == (B, ex.T, ex.NX), "rocket xs shape")
+    fell = float((res.objective < obj0).float().mean())
+    _check(fell >= 0.5, "rocket objective fell on only %.3f of lanes"
+           % fell)
+    vfell = float((res.constraint_violation < vio0).float().mean())
+    _check(vfell >= 0.5, "rocket violation fell on only %.3f of lanes"
+           % vfell)
+    _check(set(batched_solve.shapes) == {(10, 1), (10, 4), (12, 1),
+                                         (12, 16)},
+           "rocket K2 launches off its four shapes: %s"
+           % sorted(batched_solve.shapes))
+    _check(all((route == "tile") == (w <= BATCHED_SOLVE_TILE_MAX_B[n, k])
+               for n, k, route, w in shape_widths),
+           "rocket K2 launches off their route: %s" % shape_widths)
+    cone = ex.thrust_cone_ok(res.us)
+    _check(bool(cone.all()), "rocket thrust outside the cone on %d lanes"
+           % int((~cone).sum()))
+    _, xT = ex.initial_and_goal(device, x0.dtype)
+    by_kernel = {}
+    for (n, k, route, w), c in shape_widths.items():
+        key = "batched_solve_n%d_k%d_%s" % (n, k, route)
+        by_kernel[key] = by_kernel.get(key, 0) + c
+    out = dict(wall_s=wall, launches=launches, launches_by_kernel=by_kernel,
+               stats=dict(solve.stats),
+               converged=int(res.converged.sum()), batch=B,
+               mean_objective=float(res.objective.mean()),
+               mean_initial_objective=float(obj0.mean()),
+               objective_fell_frac=fell, violation_fell_frac=vfell,
+               mean_initial_violation=float(vio0.mean()),
+               mean_violation=float(res.constraint_violation.mean()),
+               max_final_state_error=float(ex.final_state_error(res.xs, xT)
+                                           .max()),
+               mean_inner_iters=float(res.iterations.float().mean()),
+               batched_solve_widths={
+                   "n%d_k%d_%s_%d" % key: c
+                   for key, c in sorted(shape_widths.items())})
+
+    # small-input agreement: float64 on the card (K2) against the same
+    # solve on the CPU (plain versions), accelerator IP settings
+    small = []
+    for dev in (device, torch.device("cpu")):
+        p, x0d, usd, o = ex.build_deploy_problem(
+            dev, dtype=torch.float64, accelerator_ip=True)
+        o = dataclasses.replace(o, max_al_iter=1)
+        s = make_segmented_solver(p, o, 4, torch.float64, dev,
+                                  compact=False, max_iter_schedule=[2])
+        r = s(ex.deploy_x0s(x0d, 4, seed=0), usd)
+        small.append((r.objective.cpu(), r.us.cpu()))
+    (obj_card, us_card), (obj_cpu, us_cpu) = small
+    dobj = float((obj_card / obj_cpu - 1).abs().max())
+    dus = float((us_card - us_cpu).abs().max())
+    _check(dobj <= 1e-6 and dus <= 1e-6,
+           "rocket small f64 card vs CPU: rel dobj %.3e, max dus %.3e"
+           % (dobj, dus))
+    out["small_f64_vs_cpu"] = dict(rel_dobj=dobj, max_dus=dus)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1699,6 +1893,11 @@ def main() -> int:
           % json.dumps(hk), flush=True)
     ho = phase_hopper(device)
     print("# phase 13 hopper main path: %s" % json.dumps(ho), flush=True)
+    rk = phase_rocket_kernels(device)
+    print("# phase 14 K2 (10, 1), (10, 4), (12, 1), (12, 16) vs plain: %s"
+          % json.dumps(rk), flush=True)
+    ro = phase_rocket(device)
+    print("# phase 15 rocket main path: %s" % json.dumps(ro), flush=True)
 
     src = "optimization_dynamics_tpu_torch/ops/kernels/csrc/"
     tpu = "optimization_dynamics_tpu/ops/pallas/"
@@ -1871,6 +2070,30 @@ def main() -> int:
             ms=k3h[route]["ms"], ms_device=k3h[route]["ms_device"],
             plain_ms=k3h["plain_ms"], bound_ms=k3h["bound_ms"],
             bound_by=k3h["bound_by"], library_ms=None))
+    for nk, case in (("n10_k1", "proj_newton_15360"),
+                     ("n10_k4", "proj_ift_15360"),
+                     ("n12_k1", "dyn_newton_15360"),
+                     ("n12_k16", "dyn_ift_15360")):
+        r = rk["f32"][case]
+        name = "batched_solve_" + nk
+        kernels.append(dict(
+            name=name, route="cuda", source=src + "batched_solve.cu",
+            replaces=tpu + "batched_solve.py:119",
+            launches=ro["launches"][name],
+            launches_by_kernel={
+                route: ro["launches_by_kernel"].get(name + "_" + route, 0)
+                for route in ("tile", "thread")},
+            max_abs_err=max(rk["f32"][c]["routes"][route]["max_dx"]
+                            for c, cnk, _ in ROCKET_K2_CASES
+                            if "n%d_k%d" % cnk == nk
+                            for route in ("tile", "thread")),
+            kernel=r["route"], ms=r["ms"], ms_device=r["ms_device"],
+            ms_tile=r["routes"]["tile"]["ms"],
+            ms_device_tile=r["routes"]["tile"]["ms_device"],
+            ms_thread=r["routes"]["thread"]["ms"],
+            ms_device_thread=r["routes"]["thread"]["ms_device"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

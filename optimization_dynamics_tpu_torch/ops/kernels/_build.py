@@ -81,8 +81,8 @@ FUSED_IP_TILE_MAX_B = {("fused_ip", "cartpole_friction"): 16384,
                        ("fused_rollout", "cartpole_friction"): 12288}
 FUSED_ROLLOUT_FUNCTORS = {"cartpole_friction": (2, 1)}  # name -> (nq, nu)
 BATCHED_SOLVE_SHAPES = frozenset({(10, 8), (10, 1), (35, 13), (6, 6),
-                                  (2, 1), (2, 6), (20, 1),
-                                  (20, 13)})  # (n, k)
+                                  (2, 1), (2, 6), (20, 1), (20, 13),
+                                  (12, 1), (12, 16), (10, 4)})  # (n, k)
 RICCATI_SHAPES = frozenset({(4, 1), (4, 3), (6, 3), (10, 4),
                             (16, 10)})  # (nx, nu)
 # K2 above this many unknowns runs one 64-thread block a system
@@ -92,9 +92,10 @@ UNROLL_MAX_N = 16
 # The widest batch each wrapper sends its tile kernel (a tile of threads a
 # system or scenario); wider launches run the per-thread kernel. Each cut
 # is the widest width of the sweep (512 to 409,600; K3 at (10, 4) and
-# (16, 10) to 102,400; tools/kernel_times.py --linalg-widths, K2 on the derivative
-# sweep's row-interleaved systems; PERF.md section 6) at which the tile
-# kernel took less of the card's time. K3 at (4, 1) and K2 at (6, 6) win
+# (16, 10) to 102,400; K2 at the rocket's shapes 32 to 61,440;
+# tools/kernel_times.py --linalg-widths, K2 on the derivative sweep's
+# row-interleaved systems; PERF.md section 6) at which the tile kernel
+# took less of the card's time, queued. K3 at (4, 1) and K2 at (6, 6) win
 # at every width swept, so their 409,600 is the end of the sweep, not a
 # measured crossover; so does K3 at the hopper's (16, 10) up to 102,400,
 # the end of its sweep (41 against 92 ms there; its per-thread kernel
@@ -103,13 +104,23 @@ UNROLL_MAX_N = 16
 # per-thread kernel as fast as the tile at 25,600 (and faster wider);
 # at 512-6,400 the tile saves at most 0.013 ms of the card's time a
 # launch, which one call, host-bound, does not show, and its rounding
-# (1-2 ulp apart from the per-thread kernel's) moves the f32 deploys. The
-# shapes not swept take the cut of their swept neighbour, or the lower of
-# the two (guessed, not measured): (10, 1) and the acrobot-without-
-# limits shapes (2, 1), (2, 6) that of (10, 8); K3's (4, 3) and (6, 3)
-# that of (10, 4).
+# (1-2 ulp apart from the per-thread kernel's) moves the f32 deploys.
+# The rocket's shapes, swept from 32 to 61,440 on its own systems
+# (``--model rocket``; the Newton right-hand sides contiguous, as the
+# solver passes them): at (10, 1) and (12, 1) the per-thread kernel
+# takes less of the card's time at every width (0.0044 against 0.0073
+# ms at 32, 0.0068 against 0.0185 at 15,360 for (10, 1)), so their cut
+# is 0; at (10, 4) the tile wins from 128 to 3,840 and ties at 15,360
+# (0.0201 against 0.0200 ms), so its cut is 3,840; at (12, 16) the
+# per-thread kernel spills (12 x 28 values a thread) and the tile wins
+# at every width (0.052 against 0.114 ms at 15,360), so its 61,440 is
+# the end of the sweep. The shapes not swept take the cut of their
+# swept neighbour, or the lower of the two (guessed, not measured): the
+# acrobot-without-limits shapes (2, 1), (2, 6) that of (10, 8); K3's
+# (4, 3) and (6, 3) that of (10, 4).
 BATCHED_SOLVE_TILE_MAX_B = {(10, 8): 0, (10, 1): 0, (6, 6): 409600,
-                            (2, 1): 0, (2, 6): 0}  # (n, k) -> B
+                            (2, 1): 0, (2, 6): 0, (12, 1): 0,
+                            (12, 16): 61440, (10, 4): 3840}  # (n, k) -> B
 RICCATI_TILE_MAX_B = {(4, 1): 409600, (4, 3): 6400, (6, 3): 6400,
                       (10, 4): 6400, (16, 10): 102400}  # (nx, nu) -> B
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}

@@ -8,7 +8,10 @@ derivative sweep (n=10, k=8, B x (T-1) = 25,600 systems at the deploy
 width) and the Newton solve of ``make_solver_batched`` (n=10, k=1), which
 runs on the card for a model without a fused-IP device functor: the
 hopper's every IP iteration at (20, 1) and every IFT solve at (20, 13),
-B x (T-1) = 5,120 systems at its deploy width.
+B x (T-1) = 5,120 systems at its deploy width; the rocket's two chained
+solves a step, the thrust projection's at (10, 1) and (10, 4) and the
+implicit-midpoint solve's at (12, 1) and (12, 16), B x (T-1) = 15,360
+systems a sweep at its deploy width.
 
 What bounds it on an H100: the arithmetic is small (a 10x10 system with
 8 right-hand sides is ~4k flops on 260 values), so the kernel is bound by
@@ -18,15 +21,19 @@ latency and by how its loads coalesce. Three kernels, each running
 * Up to 16 unknowns (``UNROLL_MAX_N``) and up to the shape's cut in
   ``BATCHED_SOLVE_TILE_MAX_B`` systems, a tile of threads a system (the
   smallest power of two that holds the n + k columns of [A | b]: 32 at
-  (10, 8), 16 at (10, 1) and (6, 6)), several tiles a 128-thread block.
+  (10, 8) and (12, 16), 16 at (10, 1), (10, 4), (12, 1) and (6, 6)),
+  several tiles a 128-thread block.
   The block loads its systems' A and b into shared memory with all its
   threads, coalesced, each thread owns one column of [A | b] in
   registers, and each Householder step is one owner's reflector and a
   parallel update of the other columns (``csrc/qr_group.cuh`` on a
   ``thread_block_tile``); x goes back through shared memory the same
-  way. It runs the acrobot's (6, 6) sweeps; at (10, 8) the cut is 0
-  (``_build.py`` says why).
-* Wider launches at up to 16 unknowns, and every (10, 8) launch, run
+  way. It runs the acrobot's (6, 6) sweeps, the rocket's (12, 16) sweeps
+  and its (10, 4) sweeps up to 3,840 systems (those that compaction
+  narrowed); at (10, 8), (10, 1) and (12, 1) the cut is 0 (``_build.py``
+  says why).
+* Wider launches at up to 16 unknowns, and every (10, 8), (10, 1) and
+  (12, 1) launch, run
   the per-thread kernel (128 threads a block, the factorisation
   unrolled into registers, the per-thread QR of the fused IP kernels,
   ``csrc/qr.cuh``). On the sweep's row-interleaved Jacobians the warp's
@@ -58,7 +65,8 @@ the block's systems, so its loads still coalesce.
 The wrapper picks by ``_build.batched_solve_route(n, k, B)``; it counts
 every launch in ``batched_solve.launches``, the tile kernel's in
 ``batched_solve.tile_launches`` too, each launch by (kernel, B) in
-``batched_solve.widths`` and by (n, k) in ``batched_solve.shapes``.
+``batched_solve.widths``, by (n, k) in ``batched_solve.shapes`` and by
+(n, k, kernel, B) in ``batched_solve.shape_widths``.
 
 The wrapper takes the plain version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises.
@@ -168,6 +176,7 @@ def batched_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     batched_solve.tile_launches += route == "tile"
     batched_solve.widths[route, B] += 1
     batched_solve.shapes[n, k] += 1
+    batched_solve.shape_widths[n, k, route, B] += 1
     return x
 
 
@@ -175,3 +184,4 @@ batched_solve.launches = 0
 batched_solve.tile_launches = 0
 batched_solve.widths = Counter()
 batched_solve.shapes = Counter()
+batched_solve.shape_widths = Counter()

@@ -11,8 +11,9 @@
 // Shapes: (10, 8) and (10, 1) for cartpole's IFT and Newton solves, (35,
 // 13) for planar push's IFT solve, (6, 6) for the acrobot's IFT solve and
 // (2, 1), (2, 6) for the Newton and IFT solves of the acrobot without
-// joint limits and (20, 1), (20, 13) for the hopper's (no fused-IP
-// functor).
+// joint limits, (20, 1), (20, 13) for the hopper's and (12, 1), (12, 16),
+// (10, 1), (10, 4) for the rocket's midpoint and thrust-projection
+// solves (no fused-IP functor).
 //
 // Three kernels:
 // * N <= UNROLL_MAX_N, narrow launches (the wrapper's cut,
@@ -260,6 +261,12 @@ ODT_BATCHED_SOLVE(20, 1, f32, float)
 ODT_BATCHED_SOLVE(20, 1, f64, double)
 ODT_BATCHED_SOLVE(20, 13, f32, float)
 ODT_BATCHED_SOLVE(20, 13, f64, double)
+ODT_BATCHED_SOLVE(12, 1, f32, float)
+ODT_BATCHED_SOLVE(12, 1, f64, double)
+ODT_BATCHED_SOLVE(12, 16, f32, float)
+ODT_BATCHED_SOLVE(12, 16, f64, double)
+ODT_BATCHED_SOLVE(10, 4, f32, float)
+ODT_BATCHED_SOLVE(10, 4, f64, double)
 ODT_BATCHED_SOLVE_TILE(10, 8, f32, float)
 ODT_BATCHED_SOLVE_TILE(10, 8, f64, double)
 ODT_BATCHED_SOLVE_TILE(10, 1, f32, float)
@@ -270,4 +277,10 @@ ODT_BATCHED_SOLVE_TILE(2, 1, f32, float)
 ODT_BATCHED_SOLVE_TILE(2, 1, f64, double)
 ODT_BATCHED_SOLVE_TILE(2, 6, f32, float)
 ODT_BATCHED_SOLVE_TILE(2, 6, f64, double)
+ODT_BATCHED_SOLVE_TILE(12, 1, f32, float)
+ODT_BATCHED_SOLVE_TILE(12, 1, f64, double)
+ODT_BATCHED_SOLVE_TILE(12, 16, f32, float)
+ODT_BATCHED_SOLVE_TILE(12, 16, f64, double)
+ODT_BATCHED_SOLVE_TILE(10, 4, f32, float)
+ODT_BATCHED_SOLVE_TILE(10, 4, f64, double)
 }  // extern "C"

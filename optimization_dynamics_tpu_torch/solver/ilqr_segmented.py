@@ -21,6 +21,9 @@ to the full Armijo grid).
   the rounds its measured violation-improvement rate needs to reach
   ``con_tol`` exceed the rounds left (a rate of 0.999 or worse counts as
   no improvement).
+* ``log``: called with a progress line after every inner iteration and
+  AL round (the reference's words, and the lanes below ``con_tol``), and
+  for every lane dropped.
 
 ``solve.stats`` counts, per call, the inner iterations dispatched and the
 derivative-sweep and line-search lane-rollouts (each x (T-1) IP solves).
@@ -55,7 +58,7 @@ def make_segmented_solver(prob: ILQRProblem, opts: ILQROptions, B: int,
                           al_stall_rounds: int = 0,
                           compact: bool = True,
                           compact_min: int = 8,
-                          max_iter_schedule=None):
+                          max_iter_schedule=None, log=None):
     """Build ``solve(x0s, us_init, lam_init=None, lamT_init=None,
     rho_init=None) -> ILQRResult`` for batch width B on ``device``.
 
@@ -168,7 +171,7 @@ def make_segmented_solver(prob: ILQRProblem, opts: ILQROptions, B: int,
         its_inc = np.zeros(B, np.int64)
         budget = (opts.max_iter if max_iter_round is None
                   else min(int(max_iter_round), opts.max_iter))
-        for _ in range(budget):
+        for it in range(budget):
             act_idx = np.flatnonzero(~done)
             if act_idx.size == 0:
                 break
@@ -203,6 +206,9 @@ def make_segmented_solver(prob: ILQRProblem, opts: ILQROptions, B: int,
             _stat("inner_iters")
             its_inc[~done] += 1
             done = done | nd
+            if log is not None:
+                log("  inner it=%d J=%.6g done=%d/%d W=%d"
+                    % (it, float(Js.min()), int(done.sum()), B, W))
             if done.all():
                 break
         its = its + torch.as_tensor(its_inc, dtype=torch.int32,
@@ -269,8 +275,17 @@ def make_segmented_solver(prob: ILQRProblem, opts: ILQROptions, B: int,
                                 & (vio_new >= opts.con_tol)
                                 & (need > rounds_left))
                     stall = np.where(hopeless, stall + 1, 0)
-                    failed |= act_np & (stall >= al_stall_rounds)
+                    newly_failed = act_np & (stall >= al_stall_rounds)
+                    if newly_failed.any() and log is not None:
+                        log("al round %d: dropping %d hopeless lane(s) "
+                            "(vio %s)" % (al_it, int(newly_failed.sum()),
+                                          vio_new[newly_failed]))
+                    failed |= newly_failed
                 vio = vio_new
+                if log is not None:
+                    log("al round %d: max vio %.3e, %d/%d lanes below "
+                        "con_tol" % (al_it, vio.max(),
+                                     int((vio < opts.con_tol).sum()), B))
                 if ((vio < opts.con_tol) | failed).all():
                     break
         else:

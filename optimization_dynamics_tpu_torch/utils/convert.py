@@ -24,13 +24,14 @@ from optimization_dynamics_tpu_torch.models.planar_push import (
     PlanarPushAux,
     PlanarPushParams,
 )
+from optimization_dynamics_tpu_torch.models.rocket import RocketParams
 from optimization_dynamics_tpu_torch.solver.ilqr import ILQROptions
 from optimization_dynamics_tpu_torch.solver.interior_point import IPOptions
 
 __all__ = ["cartpole_params", "cartpole_aux", "planar_push_params",
            "planar_push_aux", "acrobot_params", "acrobot_aux",
-           "hopper_params", "hopper_aux", "ip_options", "ilqr_options",
-           "al_state"]
+           "hopper_params", "hopper_aux", "rocket_params", "ip_options",
+           "ilqr_options", "al_state"]
 
 
 def cartpole_params(p) -> CartpoleParams:
@@ -86,6 +87,15 @@ def hopper_aux(a, device, dtype) -> HopperAux:
         np.array(a.friction), dtype=dtype, device=device)
     return HopperAux(h=torch.as_tensor(np.array(a.h), dtype=dtype,
                                        device=device), friction=fr)
+
+
+def rocket_params(p) -> RocketParams:
+    """The port's ``RocketParams`` from the reference's (the rocket has
+    no aux: its timestep and thrust limit are arguments of
+    ``make_rocket_dynamics``)."""
+    return RocketParams(mass=float(p.mass), length=float(p.length),
+                        inertia=tuple(float(j) for j in p.inertia),
+                        gravity=float(p.gravity))
 
 
 def _options(src, cls, renames=None):

@@ -26,6 +26,8 @@ inputs, so two checkouts that both have this module time the same work:
 * ``push_batch``: cold planar-push IP solves around the nominal pose;
 * ``hopper_systems``: K2's inputs at the hopper's shapes, the Newton
   and IFT systems of a derivative sweep;
+* ``rocket_systems``: K2's inputs at the rocket's four shapes, the
+  Newton and IFT systems of its two chained solves;
 * ``rollout_batch``: K4's inputs at the cartpole deploy's shapes;
 * ``lqr_batch``: K3's inputs, random LQR data;
 * ``grow_batch``: a batch repeated to a wider width (a cut's far side,
@@ -45,7 +47,8 @@ import torch
 __all__ = ["nvidia_smi", "cuda_ms", "device_ms", "launch_ms",
            "kernel_route", "routed", "cut_routed", "rel_residual",
            "ift_systems", "interleave_rows", "envelope_batch",
-           "warm_batch", "push_batch", "hopper_systems", "rollout_batch",
+           "warm_batch", "push_batch", "hopper_systems", "rocket_systems",
+           "rollout_batch",
            "lqr_batch", "grow_batch"]
 
 
@@ -260,6 +263,52 @@ def hopper_systems(B: int, seed: int, device, dtype):
     newton = (jz(z0s, ths), model.residual(z0s, ths, 0.1)[..., None])
     ift = (jz(zs, ths), batched_jacobian(model.residual, 1)(zs, ths))
     return newton, ift
+
+
+def rocket_systems(B: int, seed: int, device, dtype):
+    """The rocket's K2 systems at the deploy's scenarios: B states from
+    ``deploy_x0s`` (numpy seed ``seed``) and thrusts ``[0, 0, g] + [3, 3,
+    4] N(0, 1)`` (seed ``seed + 1``: inside, outside and above the cone),
+    solved by ``make_solver_batched`` at the deploy's accelerator r_tol.
+    Returns ``{(n, k): (A, b)}``: the thrust projection's first Newton
+    step from its cold start (dr/dz, r at kappa 0.1; (10, 1)) and its IFT
+    systems at the solutions ((10, 4)), the midpoint solve's first Newton
+    step from y = x ((12, 1)) and its IFT systems at the solutions ((12,
+    16)); the Jacobians row-interleaved as ``batched_jacobian`` gives them
+    to the solver and the sweep."""
+    from optimization_dynamics_tpu_torch.examples import rocket as ex
+    from optimization_dynamics_tpu_torch.models import rocket
+    from optimization_dynamics_tpu_torch.solver.interior_point import (
+        IPOptions, batched_jacobian, make_solver_batched)
+
+    x1, _ = ex.initial_and_goal(device, dtype)
+    xs = ex.deploy_x0s(x1, B, seed)
+    rng = np.random.default_rng(seed + 1)
+    us = torch.as_tensor(
+        np.array([0.0, 0.0, 9.81])
+        + np.array([3.0, 3.0, 4.0]) * rng.standard_normal((B, 3)),
+        dtype=dtype, device=device)
+    p = rocket.RocketParams()
+    res_dyn = lambda z, th, k: rocket.residual_dyn(p, z, th, k)
+    out = {}
+    for res, spec, z0s, ths, kappa_tol in (
+            (rocket.residual_proj, rocket.cone_spec_proj(),
+             rocket.init_z_proj(device, dtype).expand(B, rocket.NZ_PROJ),
+             torch.cat([us, us.new_full((B, 1), ex.U_MAX)], dim=1),
+             ex.PROJ_KAPPA_TOL),
+            (res_dyn, rocket.cone_spec_dyn(), xs, None, 1.0)):
+        if ths is None:         # the midpoint solve at the projected thrust
+            ths = torch.cat([xs, zs[:, 0:3], xs.new_full((B, 1), ex.H)],
+                            dim=1)
+        zs = make_solver_batched(
+            res, spec, IPOptions(r_tol=ex.DEPLOY_R_TOL_ACCEL,
+                                 kappa_tol=kappa_tol), device,
+            dtype)(z0s, ths).z
+        jz = batched_jacobian(res, 0)
+        n, k = spec.nz, spec.ntheta
+        out[n, 1] = (jz(z0s, ths), res(z0s, ths, 0.1)[..., None])
+        out[n, k] = (jz(zs, ths), batched_jacobian(res, 1)(zs, ths))
+    return out
 
 
 def rollout_batch(B: int, seed: int, device, dtype):

@@ -1,6 +1,8 @@
 """Port parity: K2's plain version (batch-first Householder QR) against the
 JAX package's ``batched_solve_reference`` and its Pallas kernel in
-interpret mode, on the systems of tests/test_pallas_solve.py.
+interpret mode, on the systems of tests/test_pallas_solve.py, at the
+shapes the port's solves pass (the rocket's (12, 1), (12, 16) and (10, 4)
+among them).
 
 The port and the reference run the same unpivoted QR; in float64 they
 agree to round-off (atol 1e-10 on well-conditioned systems). The float32
@@ -47,7 +49,8 @@ def _saddle_systems(B=16, m=5, k=1, seed=1):
     return A, b
 
 
-@pytest.mark.parametrize("shape", [(24, 9, 2), (16, 10, 8), (7, 10, 1)])
+@pytest.mark.parametrize("shape", [(24, 9, 2), (16, 10, 8), (7, 10, 1),
+                                   (24, 12, 1), (24, 12, 16), (24, 10, 4)])
 def test_plain_matches_jax_reference_f64(shape):
     A, b = _random_systems(*shape)
     ref = np.asarray(batched_solve_reference(jnp.asarray(A),
@@ -76,6 +79,18 @@ def test_plain_matches_jax_on_saddle_systems(k):
 
 def test_plain_matches_pallas_interpret_f32():
     A, b = _random_systems(B=130, n=10, k=8, seed=3)
+    A32, b32 = A.astype(np.float32), b.astype(np.float32)
+    ref = np.asarray(jax_batched_solve(jnp.asarray(A32), jnp.asarray(b32),
+                                       interpret=True))
+    got = batched_solve(torch.as_tensor(A32), torch.as_tensor(b32))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("n,k", [(12, 1), (12, 16), (10, 4)])
+def test_plain_matches_pallas_interpret_f32_at_rocket_shapes(n, k):
+    """The rocket's midpoint Newton (12, 1) and IFT (12, 16) solves and its
+    projection IFT solve (10, 4)."""
+    A, b = _random_systems(B=40, n=n, k=k, seed=n + k)
     A32, b32 = A.astype(np.float32), b.astype(np.float32)
     ref = np.asarray(jax_batched_solve(jnp.asarray(A32), jnp.asarray(b32),
                                        interpret=True))

@@ -163,7 +163,7 @@ def test_k2_k3_tile_widths_fit():
         assert w < 2 * (n + k)
         widths[n, k] = w
     assert widths == {(2, 1): 4, (2, 6): 8, (6, 6): 16, (10, 1): 16,
-                      (10, 8): 32}
+                      (10, 4): 16, (10, 8): 32, (12, 1): 16, (12, 16): 32}
     lane_nu = int(re.search(r"constexpr int RICCATI_TILE_LANE_NU = (\d+);",
                             ric)[1])
     assert lane_nu == 4

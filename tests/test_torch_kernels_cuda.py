@@ -53,7 +53,9 @@ where the tile kernel fuses each into an FMA (PERF.md section 6), so in
 float64 the two are held within 1e-10 of each other, relative, as each
 is to the plain version. K3 at the hopper's (16, 10), whose tile kernel
 factors Quu once in shared memory, with the hopper's ragged mask and an
-indefinite Quu on every fifth lane, as at the other shapes.
+indefinite Quu on every fifth lane, as at the other shapes. K2 at the
+rocket's (12, 1), (12, 16), (10, 4) and (10, 1) on its own Newton and
+IFT systems through both kernels, as at the hopper's shapes.
 """
 
 import numpy as np
@@ -106,6 +108,7 @@ from optimization_dynamics_tpu_torch.utils.measure import (
     lqr_batch,
     push_batch,
     rel_residual,
+    rocket_systems,
     rollout_batch,
     routed,
     warm_batch,
@@ -1226,3 +1229,55 @@ def test_hopper_deploy_launches_k2_and_k3(card):
     for nk in ((20, 1), (20, 13)):
         assert batched_solve.shapes[nk] > shapes.get(nk, 0), nk
     assert riccati_backward.tile_launches == tiles + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nk", [(12, 1), (12, 16), (10, 4), (10, 1)])
+def test_batched_solve_rocket_shapes_match_plain(card, dtype, nk):
+    """K2 at the rocket's (12, 1), (12, 16), (10, 4) and (10, 1) on its own
+    Newton and IFT systems (``rocket_systems``: the deploy's scenarios,
+    row-interleaved as the solver and the sweep pass them), through the
+    tile and the per-thread kernel, each forced by the wrapper's cut, on
+    a batch that is not a whole number of tiles a block: relative
+    residual <= 1e-12 in float64 (x within 1e-10 of the plain version's,
+    relative) and <= 1e-5 in float32; each counted at its shape."""
+    A, b = rocket_systems(301, 60, card, dtype)[nk]
+    xp = batched_solve_plain(A, b)
+    got = _solve_routes(A, b)
+    for route, x in got.items():
+        if dtype == torch.float64:
+            assert rel_residual(A, x, b) <= 1e-12, route
+            assert _rel(x, xp) <= 1e-10, route
+        else:
+            assert rel_residual(A, x, b) <= 1e-5, route
+    if dtype == torch.float64:
+        assert _rel(got["tile"], got["thread"]) <= 1e-10
+    before = batched_solve.shape_widths.copy()
+    batched_solve(A, b)
+    route = "tile" if A.shape[0] <= BATCHED_SOLVE_TILE_MAX_B[nk] else \
+        "thread"
+    assert batched_solve.shape_widths[(*nk, route, A.shape[0])] == \
+        before[(*nk, route, A.shape[0])] + 1
+
+
+def test_rocket_deploy_launches_k2_at_its_shapes(card):
+    """One inner iteration of the rocket deploy (float32, B=8): K2 runs at
+    (10, 1), (10, 4), (12, 1) and (12, 16) and nowhere else, the outputs
+    are finite and every lane's thrust is in the cone."""
+    import dataclasses
+
+    from optimization_dynamics_tpu_torch.examples import rocket as ex
+    from optimization_dynamics_tpu_torch.solver.ilqr_segmented import (
+        make_segmented_solver,
+    )
+
+    prob, x0, us0, opts = ex.build_deploy_problem(card)
+    assert x0.dtype == torch.float32
+    opts = dataclasses.replace(opts, max_al_iter=1)
+    solve = make_segmented_solver(prob, opts, 8, x0.dtype, card,
+                                  max_iter_schedule=[1])
+    batched_solve.shapes.clear()
+    res = solve(ex.deploy_x0s(x0, 8, seed=0), us0)
+    assert bool(torch.isfinite(res.xs).all() & torch.isfinite(res.us).all())
+    assert set(batched_solve.shapes) == {(10, 1), (10, 4), (12, 1), (12, 16)}
+    assert bool(ex.thrust_cone_ok(res.us).all())

@@ -1,7 +1,12 @@
 """The shared measurement inputs and timers of ``utils/measure.py``, on
 the CPU: the kernel inputs are the same for the same seed, the relative
 residual reads an exact solve as exact, and ``kernel_route`` and
-``routed`` set and restore the wrappers' width cuts."""
+``routed`` set and restore the wrappers' width cuts; the measuring tools
+take the rocket."""
+
+import argparse
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -13,6 +18,7 @@ from optimization_dynamics_tpu_torch.ops.kernels._build import (
 from optimization_dynamics_tpu_torch.utils.measure import (
     envelope_batch,
     hopper_systems,
+    rocket_systems,
     kernel_route,
     push_batch,
     rel_residual,
@@ -52,6 +58,57 @@ def test_hopper_systems_follow_their_seed_and_layout():
     assert not torch.equal(Ai, Ai3)
     for A, b in ((An, bn), (Ai, bi)):
         assert rel_residual(A, torch.linalg.solve(A, b), b) <= 1e-13
+
+
+def test_rocket_systems_follow_their_seed_and_layout():
+    """The rocket's projection (10, 1), (10, 4) and midpoint (12, 1), (12,
+    16) systems: the same for the same seed, the Jacobians
+    row-interleaved and the Newton right-hand sides contiguous, as the
+    solver and the sweep pass them, finite and solvable."""
+    sys_a = rocket_systems(6, 0, CPU, torch.float64)
+    sys_b = rocket_systems(6, 0, CPU, torch.float64)
+    sys_c = rocket_systems(6, 1, CPU, torch.float64)
+    assert sorted(sys_a) == [(10, 1), (10, 4), (12, 1), (12, 16)]
+    for (n, k), (A, b) in sys_a.items():
+        assert tuple(A.shape) == (6, n, n) and tuple(b.shape) == (6, n, k)
+        assert A.stride() == (n, 6 * n, 1)
+        assert b.stride() == ((n, 1, 1) if k == 1 else (k, 6 * k, 1))
+        assert torch.equal(A, sys_b[n, k][0]) and torch.equal(b,
+                                                              sys_b[n, k][1])
+        assert bool(torch.isfinite(A).all() & torch.isfinite(b).all())
+        assert rel_residual(A, torch.linalg.solve(A, b), b) <= 1e-13
+    assert not torch.equal(sys_a[12, 16][0], sys_c[12, 16][0])
+
+
+def _tool(name):
+    spec = importlib.util.spec_from_file_location(
+        name, Path(__file__).resolve().parents[1] / "tools" / (name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("argv", [["deploy", "--model", "rocket"],
+                                  ["profile", "--model", "rocket"]])
+def test_torch_measure_takes_the_rocket(argv, monkeypatch):
+    """``--model rocket`` parses for ``deploy`` and ``profile`` (then the
+    tool stops for want of a card); the rocket has no K3 cell."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tm = _tool("torch_measure")
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        tm.main(argv)
+    with pytest.raises(SystemExit) as err:
+        tm.main(argv + ["--riccati-kernel"])
+    assert err.value.code == 2
+    assert tm._example(argparse.Namespace(model="rocket", batch=None))[1] \
+        == 256
+
+
+def test_kernel_times_takes_the_rocket(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        _tool("kernel_times").main(["--model", "rocket",
+                                    "--linalg-widths", "512,15360"])
 
 
 def test_warm_batch_starts_from_the_earlier_solution():

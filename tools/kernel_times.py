@@ -1,12 +1,14 @@
 """Time the port's kernels on the card (K1, K1a, K1n, K4, K2 at (35, 13),
-(10, 8), (6, 6), (20, 1) and (20, 13), K3), to compare two checkouts in
+(10, 8), (6, 6), (20, 1) and (20, 13), K3; or K2 at the rocket's (10, 1),
+(10, 4), (12, 1) and (12, 16)), to compare two checkouts in
 one call, and each two-kernel pair's narrow kernel (tile or group)
 against its per-thread kernel by width.
 
 Run on a machine with one CUDA card:
 
     python tools/kernel_times.py [--root DIR]
-                                 [--model cartpole|acrobot|planar_push]
+                                 [--model cartpole|acrobot|planar_push
+                                  |rocket]
                                  [--widths 1600,6400]
                                  [--linalg-widths 512,25600,102400]
 
@@ -62,6 +64,16 @@ repeated, up to 102,400 (77 kB a lane). That is where each cut is
 measured; a checkout without the tables (before the tile kernels) skips
 this sweep, and one without the hopper's shapes skips them.
 
+``--model rocket`` times K2 alone, at the rocket's four shapes: (10, 1)
+and (10, 4), the thrust projection's Newton and IFT solves, and (12, 1)
+and (12, 16), the implicit-midpoint solve's, on the 15,360 systems of a
+deploy sweep at B=256 (``rocket_systems`` seed 70: Jacobians at the
+deploy's x0 scatter, row-interleaved; the Newton right-hand sides
+contiguous, as the solver passes them), one call and queued beside
+``torch.linalg.solve``; and at each of ``--linalg-widths`` each shape's
+tile and per-thread kernel in turn, on those systems repeated to the
+width, where the four cuts of ``BATCHED_SOLVE_TILE_MAX_B`` are measured.
+
 ``ms`` is the median of CUDA events around one call over ``--reps``
 calls after a warm-up, host work inside the call included, the time a
 caller waits for one call; ``ms_device`` (K2, K3) times ``--reps``
@@ -89,10 +101,53 @@ def _measure():
     return mod
 
 
+ROCKET_SHAPES = ((10, 1), (10, 4), (12, 1), (12, 16))
+
+
+def _rocket_k2(m, args, dev, f32, batched_solve, _build) -> dict:
+    """K2 at the rocket's four shapes on the 15,360 systems of a deploy
+    sweep (``rocket_systems`` seed 70), through the wrapper's route, one
+    call and queued, beside ``torch.linalg.solve``; at each of
+    ``--linalg-widths`` each shape's tile and per-thread kernel in turn,
+    forced by the cut, on those systems repeated to the width
+    (row-interleaved)."""
+    import torch
+
+    systems = m.rocket_systems(15360, 70, dev, f32)
+    out = {}
+    for (n, k) in ROCKET_SHAPES:
+        A, b = systems[n, k]
+        out["k2_%d_%d_15360" % (n, k)] = dict(
+            route=_build.batched_solve_route(n, k, A.shape[0]),
+            ms=m.cuda_ms(lambda: batched_solve(A, b), reps=args.reps),
+            ms_device=m.device_ms(lambda: batched_solve(A, b),
+                                  reps=args.reps),
+            library_ms=m.cuda_ms(lambda: torch.linalg.solve(A, b),
+                                 reps=args.reps),
+            rel_res=m.rel_residual(A, batched_solve(A, b), b))
+    for w in (int(w) for w in filter(None, args.linalg_widths.split(","))):
+        for (n, k) in ROCKET_SHAPES:
+            ab = m.interleave_rows(m.grow_batch(systems[n, k], w))
+            if k == 1:          # the solver's right-hand side: contiguous
+                ab[1] = ab[1].contiguous()
+            res = {}
+            for route in ("tile", "thread"):
+                run = m.cut_routed(_build.BATCHED_SOLVE_TILE_MAX_B, (n, k),
+                                   route == "tile", batched_solve)
+                res[route] = dict(
+                    ms=m.cuda_ms(lambda: run(*ab), reps=args.reps),
+                    ms_device=m.device_ms(lambda: run(*ab),
+                                          reps=args.reps))
+            out["k2_%d_%d_sweep_%d" % (n, k, w)] = res
+            del ab
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(HERE))
-    ap.add_argument("--model", choices=("cartpole", "acrobot", "planar_push"),
+    ap.add_argument("--model",
+                    choices=("cartpole", "acrobot", "planar_push", "rocket"),
                     default="cartpole")
     ap.add_argument("--widths", default="")
     ap.add_argument("--linalg-widths", default="")
@@ -123,6 +178,10 @@ def main(argv=None) -> None:
     dev, f32 = torch.device("cuda"), torch.float32
     _build.load_library()
     out = dict(root=str(Path(args.root).resolve()), card=m.nvidia_smi())
+    if args.model == "rocket":
+        out.update(_rocket_k2(m, args, dev, f32, batched_solve, _build))
+        print(json.dumps(out), flush=True)
+        return
 
     def time_ip(solve, z0, th) -> dict:
         sol = solve(z0, th)

@@ -2,7 +2,8 @@
 
     python -m tools.smoke_diff PARENT.log CHANGE.log
 
-Reads each log's ``# phase N ...: {json}`` lines (phases 1-11), flattens
+Reads each log's ``# phase N ...: {json}`` lines (every phase but 0,
+the build's), flattens
 each phase's JSON into ``phase/key/...`` paths and prints, per phase, how
 many values both logs have, which of them differ, and the paths only one
 log has. Timings and what follows from them (``ms``, ``plain_ms``,

@@ -1,5 +1,5 @@
 """Card measurements of the port's deploy solves (cartpole, planar push,
-acrobot, hopper).
+acrobot, hopper, rocket).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -14,16 +14,23 @@ Run from the repository root on a machine with one CUDA card:
     python -m tools.torch_measure profile --model acrobot
     python -m tools.torch_measure deploy|profile --model hopper \
         [--riccati-kernel]
+    python -m tools.torch_measure deploy --model rocket [--log]
+    python -m tools.torch_measure profile --model rocket
 
 ``deploy`` runs the example's deploy solve (``examples/cartpole.py``,
-``examples/planar_push.py``, ``examples/acrobot.py`` or
-``examples/hopper.py``, ``main --deploy``), which prints its own
-summary, then prints one JSON line: the K1 (K1n for push, K1a for
-acrobot), K2, K3 and K4 launches of the solve, each one's launches by
-kernel (tile, group, or per-thread) and width, K2's by (n, k), the mean
+``examples/planar_push.py``, ``examples/acrobot.py``,
+``examples/hopper.py`` or ``examples/rocket.py``, ``main --deploy``),
+which prints its own summary, then prints one JSON line: the K1 (K1n for
+push, K1a for acrobot), K2, K3 and K4 launches of the solve, each one's
+launches by kernel (tile, group, or per-thread) and width, K2's by (n,
+k) and by (n, k, kernel, width) (the rocket's: the solve's alone, not
+its thrust-cone check's), the mean
 and median converged objective and, with ``--lanes``, each lane's flag,
 objective and inner iterations. The batch defaults to the deploy width:
-512 for cartpole, 256 for push, acrobot and hopper. ``--fused-rollout``
+512 for cartpole, 256 for push, acrobot, hopper and the rocket (the
+rocket in projection mode, T=61, the reference bench's executor
+settings; ``--log`` prints its progress, so a run that a time limit
+cuts still shows the AL rounds it finished). ``--fused-rollout``
 (cartpole only) and ``--riccati-kernel`` (cartpole and hopper) turn on
 K4 and K3, as the example's flags of the same names do: the K3+K4 cell,
 the hopper's K3 cell.
@@ -47,6 +54,7 @@ import pstats
 import re
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -84,7 +92,8 @@ def _example(args):
     ex = importlib.import_module("optimization_dynamics_tpu_torch.examples."
                                  + args.model)
     return ex, args.batch or {"cartpole": 512, "planar_push": 256,
-                              "acrobot": 256, "hopper": 256}[args.model]
+                              "acrobot": 256, "hopper": 256,
+                              "rocket": 256}[args.model]
 
 
 def deploy(args) -> None:
@@ -94,9 +103,17 @@ def deploy(args) -> None:
         c.launches = 0
         c.widths.clear()
     k1, k2, k4, k3 = counters
-    k2.shapes.clear()
+    k2.shape_widths.clear()
     res = ex.main(["--deploy", "--device", "cuda", "--dtype", args.dtype,
-                   "--batch", str(B)] + _kernel_flags(args))
+                   "--batch", str(B)] + _kernel_flags(args)
+                  + ["--log"] * args.log)
+    # K2's launches by (n, k, kernel, width); the rocket's example checks
+    # the thrust cone with K2 after the solve, and keeps the solve's own
+    k2_launches = getattr(ex.main, "k2_launches", k2.shape_widths)
+    k2_widths, k2_shapes = Counter(), Counter()
+    for (n, k, route, w), c in k2_launches.items():
+        k2_widths[route, w] += c
+        k2_shapes[n, k] += c
     conv = res.converged.cpu().numpy()
     obj = res.objective.double().cpu().numpy()
     out = dict(model=args.model, dtype=args.dtype, batch=B,
@@ -104,14 +121,17 @@ def deploy(args) -> None:
                riccati_kernel=args.riccati_kernel,
                converged=int(conv.sum()),
                launches={"fused_ip": k1.launches,
-                         "batched_solve": k2.launches,
+                         "batched_solve": sum(k2_launches.values()),
                          "fused_rollout": k4.launches,
                          "riccati": k3.launches},
                fused_ip_widths=_by_width(k1.widths),
                fused_rollout_widths=_by_width(k4.widths),
-               batched_solve_widths=_by_width(k2.widths),
+               batched_solve_widths=_by_width(k2_widths),
                batched_solve_shapes={"%d_%d" % nk: n for nk, n in
-                                     sorted(k2.shapes.items())},
+                                     sorted(k2_shapes.items())},
+               batched_solve_shape_widths={
+                   "%d_%d_%s_%d" % key: n
+                   for key, n in sorted(k2_launches.items())},
                riccati_widths=_by_width(k3.widths),
                mean_obj_converged=(float(obj[conv].mean())
                                    if conv.any() else None),
@@ -242,11 +262,14 @@ def main(argv=None) -> None:
     d.add_argument("--dtype", choices=("f32", "f64"), default="f32")
     d.add_argument("--batch", type=int, default=None)
     d.add_argument("--lanes", action="store_true")
+    d.add_argument("--log", action="store_true",
+                   help="the rocket's progress lines, each inner iteration "
+                        "and AL round with its seconds")
     pr = sub.add_parser("profile")
     for p in (d, pr):
         p.add_argument("--model",
                        choices=("cartpole", "planar_push", "acrobot",
-                                "hopper"),
+                                "hopper", "rocket"),
                        default="cartpole")
         p.add_argument("--fused-rollout", action="store_true")
         p.add_argument("--riccati-kernel", action="store_true")
@@ -256,6 +279,8 @@ def main(argv=None) -> None:
         ap.error("--fused-rollout is cartpole's")
     if args.riccati_kernel and args.model not in ("cartpole", "hopper"):
         ap.error("--riccati-kernel is cartpole's and the hopper's")
+    if getattr(args, "log", False) and args.model != "rocket":
+        ap.error("--log is the rocket's")
     if not torch.cuda.is_available():
         raise SystemExit("torch_measure: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
