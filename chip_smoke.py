@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``optimization_dynamics_tpu_torch/ops/
-kernels/csrc`` and runs sixteen phases, each printing one ``#`` line:
+kernels/csrc`` and runs eighteen phases, each printing one ``#`` line:
 
 0. card: ``nvidia-smi`` name and power limit, torch and CUDA versions,
    kernel build time in all and per source, and what ``ptxas`` reported
@@ -145,12 +145,14 @@ kernels/csrc`` and runs sixteen phases, each printing one ``#`` line:
    (gait 1, float32, T=21) solved by the segmented executor at B=256 for
    two AL rounds of three inner iterations, with the eager backward pass
    and then with K3; each run: outputs finite, the objective and the
-   constraint violation below the open-loop rollout's on most lanes, K2
-   launched at (20, 1) and (20, 13) and only there, on its group kernel,
-   K3 launched only in the second run and on the kernel its width picks
-   (launches by kernel, shape and width printed); then the four-lane
-   float64 card-against-CPU check of phase 3 with the same backward
-   pass;
+   constraint violation below the open-loop rollout's on most lanes,
+   every IP solve in K1 on the ``hopper`` functor (launched, each launch
+   on the kernel its width picks), K2 launched at (20, 13) and only
+   there, on its group kernel (none at (20, 1): the Newton steps run
+   inside K1), K3 launched only in the second run and on the kernel its
+   width picks (launches by kernel, shape and width printed); then the
+   four-lane float64 card-against-CPU check of phase 3 with the same
+   backward pass (the CPU side runs K1's plain version);
 14. K2 at the rocket's (10, 1), (10, 4), (12, 1) and (12, 16) against its
    plain version on the rocket's own systems (``rocket_systems``, numpy
    seed 60: the deploy's x0 scatter, thrusts inside, outside and above
@@ -169,18 +171,42 @@ kernels/csrc`` and runs sixteen phases, each printing one ``#`` line:
    (projection mode, float32, T=61) solved by the segmented executor at
    B=256 for one AL round of three inner iterations; outputs finite, the
    objective and the constraint violation below the open-loop rollout's
-   on most lanes, every lane's projected thrust in the cone, K2 launched
-   at its four shapes and only there, each launch on the kernel its
-   width picks (launches by shape, kernel and width printed); then the
-   four-lane float64 card-against-CPU check of phase 3.
+   on most lanes, every lane's projected thrust in the cone, every thrust
+   projection in K1 on the ``rocket_projection`` functor (launched, each
+   launch on the kernel its width picks), K2 launched at (10, 4), (12, 1)
+   and (12, 16) and only there (none at (10, 1): the projection's Newton
+   steps run inside K1), each launch on the kernel its width picks
+   (launches by shape, kernel and width printed); then the four-lane
+   float64 card-against-CPU check of phase 3 (the CPU side runs K1's
+   plain version);
+16. K1 on ``rocket_projection`` (the thrust projection, nz=10) against its
+   plain version at the deploy's projection options (r_tol 3e-5,
+   kappa_tol 1e-4, 25 line-search candidates): 15,360 cold projections
+   (the sweep's width, u_bar = 6 N(0, 1), u_max = 12.5,
+   ``rocket_projection_batch`` numpy seed 70) and 512 (a rollout step's
+   width, seed 71), each through the wrapper's route and through each of
+   K1's two kernels (tile, per-thread), forced by the width cut; phase
+   1's tolerances in float64, and in float32 converged counts within 1%,
+   max|du_hat| <= 1e-4 where both converge and every converged thrust in
+   the cone (``||u_xy|| <= u_z + 1e-4``); float32 timed through each
+   kernel, one call and queued, with its bound, the plain version once a
+   case;
+17. K1 on ``hopper`` (nz=20) against its plain version at the hopper
+   deploy's accelerator IP options: the deploy's own solves along
+   open-loop rollouts of its initial controls (``hopper_deploy_batch``),
+   5,120 (the sweep's width, numpy seed 80) cold and warm-started from
+   K1's solutions one iterate earlier (seed 81), and 512 cold (a rollout
+   step's, seed 82), as phase 16, float32 configurations within 2e-4 (the
+   reference's bound for the hopper model).
 
 The kernels' designs are in their wrappers' docstrings
-(``ops/kernels/*.py``). K1 (cartpole), K1a (acrobot) and K4 (cartpole's
-fused rollout) each have two kernels, picked by the launch's width
-(``FUSED_IP_TILE_MAX_B``): up to the cut (the rollout steps, the
-narrowed sweeps, every K4 launch of the deploy) one scenario runs on a
-tile of threads, 16 for cartpole and 8 for the acrobot, in 64-thread
-blocks: thread j builds the Newton matrix's column j with one
+(``ops/kernels/*.py``). K1 (cartpole, the rocket's projection, the
+hopper model), K1a (acrobot) and K4 (cartpole's fused rollout) each have
+two kernels, picked by the launch's width (``FUSED_IP_TILE_MAX_B``): up
+to the cut (the rollout steps, the narrowed sweeps, every K4 launch of
+the deploy) one scenario runs on a tile of threads, 16 for cartpole and
+the rocket's projection, 32 for the hopper model and 8 for the acrobot,
+in 64-thread blocks: thread j builds the Newton matrix's column j with one
 dual-number residual, the tile solves it with a column a thread
 (``csrc/qr_group.cuh``) and runs the line search's candidates in
 parallel; K4's tile runs a scenario's 50 steps, one such solve a step.
@@ -217,9 +243,11 @@ once, each output written once) at 3.35 TB/s and its operations at the
 for the timed float32 call. The IP solves' operations are counted from
 the iterations this run's data took: per iteration NZ dual-number
 residuals (3 residuals' work each), a Householder QR solve ((4/3) NZ^3 +
-3 NZ^2), max_ls trial residuals with their merit (R + 4 NZ each) and one
-more residual, where R is the residual's arithmetic counted on one lane
-of its plain version.
+3 NZ^2) and one more residual, and per line-search trial a residual with
+its merit (R + 4 NZ), where R is the residual's arithmetic counted on one
+lane of its plain version. The trials are those the plain version's
+solve of the same inputs needs (``interior_point.ls_trials``): on each
+Newton iteration the candidates up to the first improving one.
 
 Any failure raises and the exit code is non-zero. Before the last line it
 prints the ``nvidia-smi`` line and a JSON line of the kernels: each
@@ -251,7 +279,15 @@ launches from phase 13's eager run; ``riccati_n16_u10`` and
 14's 15,360 rocket systems at each shape, ``ms`` and ``ms_device``
 through the kernel the width picks (``kernel``), each kernel's forced
 times beside them, with their launches from phase 15, in all and by
-kernel). The last line
+kernel; ``batched_solve_n10_k1`` and ``batched_solve_n20_k1``, whose
+Newton solves now run inside K1, keep their entries with their launches
+on phases 15 and 13, 0); ``fused_ip_rocket_projection`` and
+``fused_ip_hopper`` are K1's per-thread kernels on those functors, timed
+at the sweeps' widths (phases 16, 17: 15,360 cold projections, 5,120
+warm hopper solves), ``fused_ip_rocket_projection_tile`` and
+``fused_ip_hopper_tile`` their tile kernels, timed at 512 cold lanes,
+each with ``ms_device`` and its time at the other width beside it
+(``ms_<case>``), their launches from phases 15 and 13. The last line
 is ``{"ok": true,
 "device": {...}}``. It needs one card and no network.
 """
@@ -267,9 +303,10 @@ import numpy as np
 
 from optimization_dynamics_tpu_torch.utils.measure import (
     cuda_ms, cut_routed, device_ms, envelope_batch, grow_batch,
-    hopper_systems, ift_systems, interleave_rows, launch_ms, lqr_batch,
-    nvidia_smi, push_batch, rel_residual, rocket_systems, rollout_batch,
-    routed, warm_batch)
+    hopper_deploy_batch, hopper_systems, ift_systems, interleave_rows,
+    launch_ms, lqr_batch, nvidia_smi, push_batch, rel_residual,
+    rocket_projection_batch, rocket_systems, rollout_batch, routed,
+    warm_batch)
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
@@ -294,10 +331,11 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _residual_flops(model) -> int:
-    """Arithmetic of one residual evaluation, counted on one lane of the
-    plain version: each elementwise add, subtract, multiply, divide,
-    negation, square root, sine, cosine or sum element is one."""
+def _residual_flops(model, z0s, thetas) -> int:
+    """Arithmetic of one residual evaluation, counted on the first lane of
+    ``z0s``, ``thetas`` through the plain version: each elementwise add,
+    subtract, multiply, divide, negation, square root, sine, cosine or sum
+    element is one."""
     import torch
     from torch.overrides import TorchFunctionMode
 
@@ -317,21 +355,34 @@ def _residual_flops(model) -> int:
             return out
 
     f64 = torch.float64
-    q = torch.zeros((1, model.nq), dtype=f64)
-    z = model.init_z(q)
-    th = torch.zeros((1, model.spec.ntheta), dtype=f64)
+    z, th = (x[:1].to("cpu", f64) for x in (z0s, thetas))
     with Count():
         model.residual(z, th, torch.tensor(1e-3, dtype=f64))
     return Count.n
 
 
-def _ip_flops(model, opts, iterations: int, solves: int) -> float:
-    """Operations of ``solves`` IP solves that took ``iterations`` Newton
-    iterations in all (see the module docstring)."""
-    R, nz = _residual_flops(model), model.spec.nz
-    per_iter = (nz * 3 * R + 4.0 / 3.0 * nz ** 3 + 3 * nz ** 2
-                + opts.max_ls * (R + 4 * nz) + R)
-    return iterations * per_iter + solves * R
+def _ip_flops(model, z0s, thetas, iterations: int, trials: int,
+              solves: int) -> float:
+    """Operations of ``solves`` IP solves on ``z0s``, ``thetas`` that took
+    ``iterations`` Newton iterations and ``trials`` line-search trials in
+    all (see the module docstring)."""
+    R, nz = _residual_flops(model, z0s, thetas), model.spec.nz
+    per_iter = nz * 3 * R + 4.0 / 3.0 * nz ** 3 + 3 * nz ** 2 + R
+    return iterations * per_iter + trials * (R + 4 * nz) + solves * R
+
+
+def _with_trials(run):
+    """``run()`` with the plain solver's line-search trials counted
+    (``interior_point.ls_trials``): (its result, the trials)."""
+    from optimization_dynamics_tpu_torch.solver.interior_point import (
+        ls_trials)
+
+    ls_trials.on, ls_trials.n = True, 0
+    try:
+        out = run()
+    finally:
+        ls_trials.on = False
+    return out, ls_trials.n
 
 
 def deploy_ip_options():
@@ -403,7 +454,8 @@ def phase_k1(device) -> dict:
                  "warm_25600": (z0w, thw), "cold_1024": (z0r, thr)}
         res = {}
         for case, (z0, th) in cases.items():
-            sk, sp = kern(z0, th), plain(z0, th)
+            sk, (sp, trials) = kern(z0, th), _with_trials(
+                lambda: plain(z0, th))
             torch.cuda.synchronize()
             res[case] = _k1_agreement(sk, sp, dtype)
             if dtype == torch.float32:
@@ -412,8 +464,8 @@ def phase_k1(device) -> dict:
                                                  reps=3)
                 res[case].update(_bound(
                     _nbytes(z0, th, sk.z) + 4 * z0.shape[0] * 4,
-                    _ip_flops(model, opts, int(sk.iterations.sum()),
-                              z0.shape[0])))
+                    _ip_flops(model, z0, th, int(sk.iterations.sum()),
+                              trials, z0.shape[0])))
         out[name] = res
     return out
 
@@ -914,7 +966,7 @@ def phase_k4(device) -> dict:
                                       dtype)
             plain = make_fused_rollout_plain(model, opts, aux, T, mask,
                                              device, dtype)
-            p = plain(*args)
+            p, trials = _with_trials(lambda: plain(*args))
             runs = {case: kern}
             for route in ("tile", "thread"):
                 runs["%s_%s" % (case, route)] = routed(
@@ -931,7 +983,9 @@ def phase_k4(device) -> dict:
                     nx, nu = ex.NX, ex.NU
                     res[key].update(_bound(
                         _nbytes(*args, *k[:3]) + (T - 1) * nu * 4,
-                        _ip_flops(model, opts, int(k[3][..., 0].sum()),
+                        _ip_flops(model, torch.zeros((1, model.spec.nz)),
+                                  torch.zeros((1, model.spec.ntheta)),
+                                  int(k[3][..., 0].sum()), trials,
                                   B * (T - 1))
                         + B * (T - 1) * (2 * nx * nu + 3 * nu)))
                     res[key]["bound_share"] = (res[key]["bound_ms"]
@@ -1120,8 +1174,8 @@ def _fused_ip_phase(device, batch, opts, n_sweep: int, seeds,
         for key, case, solve in runs:
             z0, th = cases[case]
             if case not in refs:
-                refs[case] = plain(z0, th)
-            sk, sp = solve(z0, th), refs[case]
+                refs[case] = _with_trials(lambda: plain(z0, th))
+            sk, (sp, trials) = solve(z0, th), refs[case]
             torch.cuda.synchronize()
             res[key] = _k1_agreement(
                 sk, sp, dtype, nq=model.nq, f32_tol=2e-4,
@@ -1141,8 +1195,8 @@ def _fused_ip_phase(device, batch, opts, n_sweep: int, seeds,
                                                     reps=1)
                 res[key].update(_bound(
                     _nbytes(z0, th, sk.z) + 4 * z0.shape[0] * 4,
-                    _ip_flops(model, opts, int(sk.iterations.sum()),
-                              z0.shape[0])))
+                    _ip_flops(model, z0, th, int(sk.iterations.sum()),
+                              trials, z0.shape[0])))
                 res[key]["bound_share"] = res[key]["bound_ms"] / res[key]["ms"]
 
         # K2 on the IFT systems of the sweep at the kernel's cold solutions
@@ -1555,15 +1609,17 @@ def phase_hopper_kernels(device) -> dict:
 def _hopper_solve(device, riccati_kernel: bool) -> dict:
     """The hopper deploy solve at full width (B=256, T=21, float32) for
     two AL rounds of three inner iterations, eager backward pass or K3,
-    then the four-lane float64 card-against-CPU check with the same
-    backward pass."""
+    every IP solve in K1 (``hopper``), then the four-lane float64
+    card-against-CPU check with the same backward pass (the CPU side runs
+    K1's plain version)."""
     import torch
 
     from optimization_dynamics_tpu_torch.examples import hopper as ex
     from optimization_dynamics_tpu_torch.ops.kernels._build import (
-        RICCATI_TILE_MAX_B)
+        FUSED_IP_TILE_MAX_B, RICCATI_TILE_MAX_B)
     from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
         batched_solve)
+    from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import fused_ip
     from optimization_dynamics_tpu_torch.ops.kernels.riccati import (
         riccati_backward)
     from optimization_dynamics_tpu_torch.solver.ilqr_batched import (
@@ -1592,6 +1648,7 @@ def _hopper_solve(device, riccati_kernel: bool) -> dict:
     _zero_counts(batched_solve)
     batched_solve.shapes.clear()
     _zero_counts(riccati_backward)
+    _zero_counts(fused_ip)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = solve(x0s, us0)
@@ -1599,7 +1656,9 @@ def _hopper_solve(device, riccati_kernel: bool) -> dict:
     wall = time.perf_counter() - t0
     launches = {"batched_solve_n%d_k%d" % nk: c
                 for nk, c in sorted(batched_solve.shapes.items())}
+    launches["batched_solve_n20_k1"] = batched_solve.shapes[20, 1]
     launches.update(_split_counts("riccati_n16_u10", riccati_backward))
+    launches.update(_split_counts("fused_ip_hopper", fused_ip))
 
     for name in ("xs", "us", "objective", "al_objective",
                  "constraint_violation", "lam", "lamT", "rho"):
@@ -1612,12 +1671,15 @@ def _hopper_solve(device, riccati_kernel: bool) -> dict:
     vfell = float((res.constraint_violation < vio0).float().mean())
     _check(vfell >= 0.5, "hopper violation fell on only %.3f of lanes"
            % vfell)
-    for nk in ("n20_k1", "n20_k13"):
-        _check(launches.get("batched_solve_" + nk, 0) > 0,
-               "batched_solve_%s not launched on the hopper path" % nk)
-    _check(set(batched_solve.shapes) == {(20, 1), (20, 13)}
+    # every IP solve in K1: K2 only for the IFT solves, none at (20, 1)
+    _check(launches["fused_ip_hopper"] + launches["fused_ip_hopper_tile"]
+           > 0, "K1 (hopper) not launched on the hopper path")
+    _check(launches.get("batched_solve_n20_k13", 0) > 0,
+           "batched_solve_n20_k13 not launched on the hopper path")
+    _check(set(batched_solve.shapes) == {(20, 13)}
            and all(route == "group" for route, _ in batched_solve.widths),
-           "hopper K2 launches off (20, 1), (20, 13) or the group kernel")
+           "hopper K2 launches off (20, 13) or the group kernel: %s"
+           % sorted(batched_solve.shapes))
     k3 = launches["riccati_n16_u10"] + launches["riccati_n16_u10_tile"]
     _check((k3 > 0) == riccati_kernel,
            "K3 launched %d times with riccati_kernel=%s"
@@ -1636,9 +1698,12 @@ def _hopper_solve(device, riccati_kernel: bool) -> dict:
                batched_solve_widths={"%s_%d" % kb: n for kb, n in sorted(
                    batched_solve.widths.items())},
                riccati_widths=_routed_widths(
-                   "K3", riccati_backward, RICCATI_TILE_MAX_B[16, 10]))
+                   "K3", riccati_backward, RICCATI_TILE_MAX_B[16, 10]),
+               fused_ip_widths=_routed_widths(
+                   "K1 (hopper)", fused_ip,
+                   FUSED_IP_TILE_MAX_B["fused_ip", "hopper"]))
 
-    # small-input agreement: float64 on the card (K2, and K3 if on)
+    # small-input agreement: float64 on the card (K1, K2, and K3 if on)
     # against the same solve on the CPU (plain versions), accelerator IP
     # settings
     small = []
@@ -1729,15 +1794,18 @@ def phase_rocket_kernels(device) -> dict:
 
 def phase_rocket(device) -> dict:
     """The rocket deploy solve at full width (B=256, T=61, float32) for
-    one AL round of at most three inner iterations, then the four-lane
-    float64 card-against-CPU check; see the module docstring."""
+    one AL round of at most three inner iterations, every thrust
+    projection in K1 (``rocket_projection``), then the four-lane float64
+    card-against-CPU check (the CPU side runs K1's plain version); see
+    the module docstring."""
     import torch
 
     from optimization_dynamics_tpu_torch.examples import rocket as ex
     from optimization_dynamics_tpu_torch.ops.kernels._build import (
-        BATCHED_SOLVE_TILE_MAX_B)
+        BATCHED_SOLVE_TILE_MAX_B, FUSED_IP_TILE_MAX_B)
     from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
         batched_solve)
+    from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import fused_ip
     from optimization_dynamics_tpu_torch.solver.ilqr_batched import (
         make_phases)
     from optimization_dynamics_tpu_torch.solver.ilqr_segmented import (
@@ -1763,6 +1831,7 @@ def phase_rocket(device) -> dict:
     _zero_counts(batched_solve)
     batched_solve.shapes.clear()
     batched_solve.shape_widths.clear()
+    _zero_counts(fused_ip)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = solve(x0s, us0)
@@ -1770,7 +1839,12 @@ def phase_rocket(device) -> dict:
     wall = time.perf_counter() - t0
     launches = {"batched_solve_n%d_k%d" % nk: c
                 for nk, c in sorted(batched_solve.shapes.items())}
+    launches["batched_solve_n10_k1"] = batched_solve.shapes[10, 1]
+    launches.update(_split_counts("fused_ip_rocket_projection", fused_ip))
     shape_widths = dict(batched_solve.shape_widths)
+    k1_widths = _routed_widths(
+        "K1 (rocket_projection)", fused_ip,
+        FUSED_IP_TILE_MAX_B["fused_ip", "rocket_projection"])
 
     for name in ("xs", "us", "objective", "al_objective",
                  "constraint_violation", "lam", "lamT", "rho"):
@@ -1783,9 +1857,13 @@ def phase_rocket(device) -> dict:
     vfell = float((res.constraint_violation < vio0).float().mean())
     _check(vfell >= 0.5, "rocket violation fell on only %.3f of lanes"
            % vfell)
-    _check(set(batched_solve.shapes) == {(10, 1), (10, 4), (12, 1),
-                                         (12, 16)},
-           "rocket K2 launches off its four shapes: %s"
+    # every projection solve in K1: K2 only at the projection's IFT
+    # shape and the midpoint solve's two, none at (10, 1)
+    _check(launches["fused_ip_rocket_projection"]
+           + launches["fused_ip_rocket_projection_tile"] > 0,
+           "K1 (rocket_projection) not launched on the rocket path")
+    _check(set(batched_solve.shapes) == {(10, 4), (12, 1), (12, 16)},
+           "rocket K2 launches off its three shapes: %s"
            % sorted(batched_solve.shapes))
     _check(all((route == "tile") == (w <= BATCHED_SOLVE_TILE_MAX_B[n, k])
                for n, k, route, w in shape_widths),
@@ -1811,10 +1889,11 @@ def phase_rocket(device) -> dict:
                mean_inner_iters=float(res.iterations.float().mean()),
                batched_solve_widths={
                    "n%d_k%d_%s_%d" % key: c
-                   for key, c in sorted(shape_widths.items())})
+                   for key, c in sorted(shape_widths.items())},
+               fused_ip_widths=k1_widths)
 
-    # small-input agreement: float64 on the card (K2) against the same
-    # solve on the CPU (plain versions), accelerator IP settings
+    # small-input agreement: float64 on the card (K1, K2) against the
+    # same solve on the CPU (plain versions), accelerator IP settings
     small = []
     for dev in (device, torch.device("cpu")):
         p, x0d, usd, o = ex.build_deploy_problem(
@@ -1832,6 +1911,112 @@ def phase_rocket(device) -> dict:
            % (dobj, dus))
     out["small_f64_vs_cpu"] = dict(rel_dobj=dobj, max_dus=dus)
     return out
+
+
+def _k1_model_phase(device, cases, opts, nq: int, f32_tol: float,
+                    cone: bool = False) -> dict:
+    """K1 on one of its later functors against its plain version: every
+    case of ``cases(dtype, kern) -> {case: (model, z0s, thetas)}`` (``kern``
+    the K1 solver of that dtype, for warm starts) through the wrapper's
+    route and through each of K1's two kernels, forced by the width cut;
+    phase 1's tolerances (``_k1_agreement``), float32 on the first ``nq``
+    entries of z within ``f32_tol``; ``cone``: every converged float32
+    thrust in the cone (``||u_xy|| <= u_z + 1e-4``). float32 timed
+    through each kernel, one call and queued, with the bound; the plain
+    version once a case."""
+    import torch
+
+    from optimization_dynamics_tpu_torch.ops.kernels._build import (
+        FUSED_IP_TILE_MAX_B)
+    from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import (
+        fused_ip, make_fused_ip_plain, make_fused_ip_solver)
+
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        name = "f64" if dtype == torch.float64 else "f32"
+        res = {}
+        for case, (model, z0, th) in cases(
+                dtype, lambda m: make_fused_ip_solver(m, opts, device,
+                                                      dtype)).items():
+            kern = make_fused_ip_solver(model, opts, device, dtype)
+            plain = make_fused_ip_plain(model, opts, device, dtype)
+            sp, trials = _with_trials(lambda: plain(z0, th))
+            cut = FUSED_IP_TILE_MAX_B["fused_ip", model.kernel]
+            r = dict(lanes=int(z0.shape[0]),
+                     kernel="tile" if z0.shape[0] <= cut else "thread")
+            for route in ("route", "tile", "thread"):
+                solve = kern if route == "route" else routed(
+                    model.kernel, route == "tile", kern)
+                tiles = fused_ip.tile_launches
+                sk = solve(z0, th)
+                torch.cuda.synchronize()
+                if route != "route":
+                    _check(fused_ip.tile_launches - tiles
+                           == (route == "tile"), "K1 %s %s %s: not on the "
+                           "%s kernel" % (model.kernel, name, case, route))
+                a = _k1_agreement(sk, sp, dtype, nq=nq, f32_tol=f32_tol)
+                a["mean_iters"] = float(sk.iterations.float().mean())
+                if cone and dtype == torch.float32:
+                    u = sk.z[:, 0:3][sk.converged]
+                    gap = float((torch.linalg.vector_norm(u[:, 0:2], dim=1)
+                                 - u[:, 2]).max())
+                    _check(gap <= 1e-4, "K1 %s %s %s: a converged thrust "
+                           "%.3e outside the cone" % (model.kernel, name,
+                                                      case, gap))
+                    a["max_cone_gap"] = gap
+                if dtype == torch.float32:
+                    a["ms"] = cuda_ms(lambda: solve(z0, th))
+                    a["ms_device"] = device_ms(lambda: solve(z0, th))
+                    a.update(_bound(
+                        _nbytes(z0, th, sk.z) + 4 * z0.shape[0] * 4,
+                        _ip_flops(model, z0, th, int(sk.iterations.sum()),
+                                  trials, z0.shape[0])))
+                r[route] = a
+            if dtype == torch.float32:
+                r["plain_ms"] = cuda_ms(lambda: plain(z0, th), reps=1)
+            res[case] = r
+        out[name] = res
+    return out
+
+
+def phase_k1_rocket(device) -> dict:
+    """K1 on ``rocket_projection`` (nz=10) against its plain version at
+    the deploy's projection options: cold projections (u_bar = 6 N(0, 1),
+    u_max = 12.5; ``rocket_projection_batch``) at the sweep's width,
+    15,360 (B x (T-1) at B=256, numpy seed 70), and at a rollout step's,
+    512 (seed 71); see the module docstring."""
+    from optimization_dynamics_tpu_torch.examples import rocket as ex
+    from optimization_dynamics_tpu_torch.solver.interior_point import (
+        IPOptions)
+
+    def cases(dtype, _):
+        return {"cold_%d" % B: rocket_projection_batch(B, seed, device, dtype)
+                for B, seed in ((15360, 70), (512, 71))}
+
+    opts = IPOptions(r_tol=ex.DEPLOY_R_TOL_ACCEL, kappa_tol=ex.PROJ_KAPPA_TOL)
+    return _k1_model_phase(device, cases, opts, nq=3, f32_tol=1e-4,
+                           cone=True)
+
+
+def phase_k1_hopper(device) -> dict:
+    """K1 on ``hopper`` (nz=20) against its plain version: the hopper
+    deploy's own solves (``hopper_deploy_batch``) at the sweep's width,
+    5,120 (B x (T-1) at B=256, numpy seed 80), cold and warm-started from
+    K1's solutions one iterate earlier (seed 81), and 512 cold ones (a
+    rollout step's width, seed 82); see the module docstring."""
+    from optimization_dynamics_tpu_torch.examples import hopper as ex
+    from optimization_dynamics_tpu_torch.solver.interior_point import (
+        IPOptions)
+
+    def cases(dtype, make_kern):
+        model, z0c, thc = hopper_deploy_batch(5120, 80, device, dtype)
+        z0w, thw = warm_batch(make_kern(model), model, z0c, thc, 81)
+        return {"cold_5120": (model, z0c, thc),
+                "warm_5120": (model, z0w, thw),
+                "cold_512": hopper_deploy_batch(512, 82, device, dtype)}
+
+    return _k1_model_phase(device, cases, IPOptions(**ex.DEPLOY_IP_ACCEL),
+                           nq=4, f32_tol=2e-4)
 
 
 def main() -> int:
@@ -1898,6 +2083,12 @@ def main() -> int:
           % json.dumps(rk), flush=True)
     ro = phase_rocket(device)
     print("# phase 15 rocket main path: %s" % json.dumps(ro), flush=True)
+    kr = phase_k1_rocket(device)
+    print("# phase 16 K1 fused_ip rocket_projection vs plain: %s"
+          % json.dumps(kr), flush=True)
+    kh = phase_k1_hopper(device)
+    print("# phase 17 K1 fused_ip hopper vs plain: %s" % json.dumps(kh),
+          flush=True)
 
     src = "optimization_dynamics_tpu_torch/ops/kernels/csrc/"
     tpu = "optimization_dynamics_tpu/ops/pallas/"
@@ -2094,6 +2285,32 @@ def main() -> int:
             ms_device_thread=r["routes"]["thread"]["ms_device"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    # K1's later functors: the per-thread kernel timed at the sweep's
+    # width, the tile kernel at a rollout step's, each forced by the cut,
+    # with its time at the other width beside it
+    for name, res, path, source, sweep in (
+            ("fused_ip_rocket_projection", kr, ro, "fused_ip_rocket.cu",
+             "cold_15360"),
+            ("fused_ip_hopper", kh, ho["eager"], "fused_ip_hopper.cu",
+             "warm_5120")):
+        for route, case, other in (("thread", sweep, "cold_512"),
+                                   ("tile", "cold_512", sweep)):
+            r = res["f32"][case][route]
+            kernels.append(dict(
+                name=name + ("_tile" if route == "tile" else ""),
+                route="cuda", source=src + source,
+                replaces=tpu + "fused_ip.py:410",
+                launches=path["launches"][name + ("_tile" if route == "tile"
+                                                  else "")],
+                max_abs_err=max(c[route]["max_dq"]
+                                for c in res["f32"].values()),
+                ms=r["ms"], ms_device=r["ms_device"], case=case,
+                plain_ms=res["f32"][case]["plain_ms"],
+                bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                library_ms=None,
+                **{"ms_" + other: res["f32"][other][route]["ms"],
+                   "ms_device_" + other:
+                       res["f32"][other][route]["ms_device"]}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

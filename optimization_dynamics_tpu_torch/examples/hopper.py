@@ -24,11 +24,14 @@ have mixed t, and the first-step and pass-through Jacobian blocks are
 assembled per row. A rollout hands ``t`` as a Python int, a sweep as a
 (B (T-1),) tensor.
 
-The hopper has no fused-IP device functor: its IP solves run
-``make_solver_batched``, whose Newton steps go through the batched QR
-kernel (K2) at (20, 1) and its IFT solves at (20, 13), one 64-thread
-block a system; ``--riccati-kernel`` runs each backward pass as K3 at
-(nx, nu) = (16, 10). Run the deploy solve on the card with
+The hopper model's device functor (``ops/kernels/csrc/hopper.cuh``)
+puts every IP solve of the deploy, the rollouts' and the sweeps', whole
+in the fused IP kernel (K1): its 32-thread tile kernel up to its width
+cut, its per-thread kernel above. The IFT solves go through the batched
+QR kernel (K2) at (20, 13), one 64-thread block a system;
+``--riccati-kernel`` runs each backward pass as K3 at (nx, nu) = (16,
+10). The reference's deploy runs ``make_solver_batched``, which is K1's
+plain version. Run the deploy solve on the card with
 
     python -m optimization_dynamics_tpu_torch.examples.hopper \\
         --deploy --batch 256 [--gait 1|2|3] [--dtype f32|f64] \\
@@ -358,6 +361,9 @@ def main(argv=None):
     from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
         batched_solve,
     )
+    from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import (
+        fused_ip,
+    )
     from optimization_dynamics_tpu_torch.ops.kernels.riccati import (
         riccati_backward,
     )
@@ -367,7 +373,7 @@ def main(argv=None):
         )
         load_library()          # build the kernels before the clock
         torch.cuda.synchronize()
-    for c in (batched_solve, riccati_backward):
+    for c in (fused_ip, batched_solve, riccati_backward):
         c.launches = c.tile_launches = 0
         c.widths.clear()
     t0 = time.perf_counter()
@@ -393,6 +399,9 @@ def main(argv=None):
     print("mean inner iterations %.2f, AL rounds %d"
           % (float(res.iterations.float().mean()),
              int(res.al_iterations.max())))
+    print("K1 launches %d (tile %d) by (kernel, width) %s"
+          % (fused_ip.launches, fused_ip.tile_launches,
+             dict(sorted(fused_ip.widths.items()))))
     print("K2 launches %d by (kernel, width) %s"
           % (batched_solve.launches, dict(sorted(batched_solve.widths
                                                  .items()))))

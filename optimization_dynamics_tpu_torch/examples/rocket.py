@@ -13,10 +13,12 @@ reference draws them from ``jax.random``).
 
 ``build_deploy_problem`` is the deploy tier, solved lane-batched by
 ``solver.ilqr_segmented.make_segmented_solver``: every step chains two
-IP solves through ``make_solver_batched``, the cold thrust projection
-(nz=10) and the warm-startable implicit-midpoint solve (nz=12), whose
-Newton and IFT solves run in the batched QR kernel (K2) at (10, 1),
-(10, 4), (12, 1) and (12, 16). On a CUDA device it runs in float32 at
+IP solves, the cold thrust projection (nz=10), whole in the fused IP
+kernel (K1, its ``rocket_projection`` functor; its IFT solves in the
+batched QR kernel, K2, at (10, 4)), and the warm-startable
+implicit-midpoint solve (nz=12) through ``make_solver_batched``, whose
+Newton and IFT solves run in K2 at (12, 1) and (12, 16). On a CUDA
+device it runs in float32 at
 the reference's accelerator settings; on the CPU the plain versions run
 in float64. Run it on the card with
 
@@ -325,6 +327,9 @@ def main(argv=None):
     from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
         batched_solve,
     )
+    from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import (
+        fused_ip,
+    )
     if device.type == "cuda":
         from optimization_dynamics_tpu_torch.ops.kernels._build import (
             load_library,
@@ -332,12 +337,17 @@ def main(argv=None):
         load_library()          # build the kernels before the clock
         torch.cuda.synchronize()
     batched_solve.shape_widths.clear()
+    fused_ip.launches = fused_ip.tile_launches = 0
+    fused_ip.widths.clear()
     t0 = time.perf_counter()
     res = solve(x0s, us0)
     if device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    # the solve's K2 launches, before the thrust-cone check adds its own
+    # the solve's K1 and K2 launches, before the thrust-cone check adds
+    # its own
+    main.k1_launches = (fused_ip.launches, fused_ip.tile_launches,
+                        dict(sorted(fused_ip.widths.items())))
     main.k2_launches = dict(sorted(batched_solve.shape_widths.items()))
     conv = res.converged.cpu().numpy()
     obj = res.objective.cpu().numpy()
@@ -360,12 +370,15 @@ def main(argv=None):
     print("mean inner iterations %.2f, AL rounds %d"
           % (float(res.iterations.float().mean()),
              int(res.al_iterations.max())))
+    print("K1 launches %d (tile %d) by (kernel, width) %s"
+          % main.k1_launches)
     print("K2 launches %d by (n, k, kernel, width) %s"
           % (sum(main.k2_launches.values()), main.k2_launches))
     print("stats %s" % dict(solve.stats))
     return res
 
 
+main.k1_launches = (0, 0, {})
 main.k2_launches = {}
 
 

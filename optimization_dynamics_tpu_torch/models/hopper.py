@@ -36,9 +36,13 @@ Problem data (friction coefficients in theta):
 Every function works over the last dimension, so it takes one vector or a
 batch (batch first) alike. Constants enter as Python floats, never as
 tensors made with ``torch.tensor``, so a call on CUDA tensors copies
-nothing from the host. The model has no CUDA device functor: its
-lane-batched solves run ``make_solver_batched``, whose Newton and IFT
-solves go through the batched QR kernel (K2) at (20, 1) and (20, 13).
+nothing from the host. Its CUDA device functor is
+``ops/kernels/csrc/hopper.cuh`` (``model()``'s ``kernel="hopper"``, the
+``HopperParams`` as ``kernel_params``): on the card every lane-batched
+IP solve, eval and grad, runs in the fused IP kernel (K1), whose wrapper
+takes its plain version (``make_solver_batched``'s loop with the Newton
+steps through K2's plain QR) for CPU tensors; the IFT solves go through
+the batched QR kernel (K2) at (20, 13).
 """
 
 from __future__ import annotations
@@ -245,8 +249,11 @@ def init_z(q):
 
 
 def model(params: HopperParams = HopperParams()) -> ImplicitModel:
-    """The hopper's ``ImplicitModel`` (no device functor:
-    ``make_solver_batched`` solves it, as the reference's deploy does)."""
+    """The hopper's ``ImplicitModel``, with its CUDA device functor
+    ``hopper`` and the params as its constants: the counterpart of the
+    reference's ``make_implicit_dynamics(hopper.model(), fused=True)``
+    (the reference's deploy runs ``make_solver_batched``; K1's plain
+    version is that solver)."""
     def res(z, theta, kappa):
         return residual(params, z, theta, kappa)
 
@@ -271,4 +278,6 @@ def model(params: HopperParams = HopperParams()) -> ImplicitModel:
         q_sel=tuple(range(NQ)),
         th_q0=tuple(range(4)), th_q1=tuple(range(4, 8)),
         th_u=(8, 9),
+        kernel="hopper",
+        kernel_params=tuple(float(v) for v in params),
     )

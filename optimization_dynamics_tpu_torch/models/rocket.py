@@ -18,10 +18,14 @@ State x = [position (3), MRP attitude (3), velocity (3), body rates (3)].
 Every function works over the last dimension, so it takes one vector or
 a batch (batch first) alike. Constants enter as Python floats, never as
 tensors made with ``torch.tensor``, so a call on CUDA tensors copies
-nothing from the host. The model has no CUDA device functor: both solves
-run ``make_solver_batched``, whose Newton and IFT solves go through the
-batched QR kernel (K2): the projection's at (10, 1) and (10, 4), the
-dynamics' at (12, 1) and (12, 16).
+nothing from the host. The projection has a CUDA device functor,
+``ops/kernels/csrc/rocket_projection.cuh`` (``projection_model()``): on
+the card each projection solve runs whole in the fused IP kernel (K1),
+whose wrapper takes its plain version (``make_solver_batched``'s loop
+with the Newton steps through K2's plain QR) for CPU tensors; its IFT
+solve goes through the batched QR kernel (K2) at (10, 4). The midpoint
+solve has no functor: it runs ``make_solver_batched``, its Newton and IFT
+solves through K2 at (12, 1) and (12, 16).
 
 The yaw-rate equation divides the z-component of ``cross(w, J w)`` by
 an inertia of 1e-5; that component is zero in exact arithmetic, and in
@@ -44,6 +48,9 @@ from typing import Callable, NamedTuple
 import torch
 
 from optimization_dynamics_tpu_torch.ops.cones import ConeSpec, cone_product
+from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import (
+    make_fused_ip_solver,
+)
 from optimization_dynamics_tpu_torch.solver.interior_point import (
     IPOptions,
     make_sensitivity_batched,
@@ -184,6 +191,21 @@ def init_z_proj(device, dtype):
     return z
 
 
+class ProjectionModel(NamedTuple):
+    """What the fused IP solver reads of the thrust projection: its
+    residual and cone spec (the plain version's) and its device functor
+    with its constants (none: u_max arrives in theta)."""
+
+    residual: Callable
+    spec: ConeSpec
+    kernel: str = "rocket_projection"
+    kernel_params: tuple = ()
+
+
+def projection_model() -> ProjectionModel:
+    return ProjectionModel(residual=residual_proj, spec=cone_spec_proj())
+
+
 # ---------------------------------------------------------------------------
 # assembled lane-batched rocket dynamics
 
@@ -209,8 +231,9 @@ def make_rocket_dynamics(params: RocketParams = RocketParams(),
                          dtype=torch.float64) -> RocketDynamics:
     """The (optionally projected) implicit-midpoint stepper on ``device``
     in ``dtype``: the dynamics solved as an equality-only Newton system,
-    the projection from its cold start to ``proj_kappa_tol``, IFT
-    gradients at the relaxed point."""
+    the projection from its cold start to ``proj_kappa_tol`` in the fused
+    IP kernel (K1; its plain version on CPU tensors), IFT gradients at
+    the relaxed point."""
     device = torch.device(device)
 
     def dyn_res(z, th, kappa):
@@ -220,9 +243,9 @@ def make_rocket_dynamics(params: RocketParams = RocketParams(),
         dyn_res, cone_spec_dyn(), IPOptions(r_tol=r_tol, kappa_tol=1.0),
         device, dtype)
     dyn_sens = make_sensitivity_batched(dyn_res, cone_spec_dyn())
-    proj_solve = make_solver_batched(
-        residual_proj, cone_spec_proj(),
-        IPOptions(r_tol=r_tol, kappa_tol=proj_kappa_tol), device, dtype)
+    proj_solve = make_fused_ip_solver(
+        projection_model(), IPOptions(r_tol=r_tol, kappa_tol=proj_kappa_tol),
+        device, dtype)
     proj_sens = make_sensitivity_batched(residual_proj, cone_spec_proj())
     z0_proj = init_z_proj(device, dtype)
 

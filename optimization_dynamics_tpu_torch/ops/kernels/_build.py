@@ -57,7 +57,9 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 # file.
 FUSED_IP_FUNCTORS = {"cartpole_friction": (10, 8),  # name -> (nz, ntheta)
                      "planar_push": (35, 13),
-                     "acrobot_impact": (6, 6)}
+                     "acrobot_impact": (6, 6),
+                     "rocket_projection": (10, 4),
+                     "hopper": (20, 13)}
 # (wrapper, functor) pairs that also have a narrow kernel, and the
 # widest batch the wrapper sends it; wider launches run the per-thread
 # kernel. The narrow kernel runs a scenario on several threads: a tile
@@ -74,10 +76,21 @@ FUSED_IP_FUNCTORS = {"cartpole_friction": (10, 8),  # name -> (nz, ntheta)
 # the B=256 deploy sends at most 25,600. K1n (planar push): the group
 # kernel wins up to 51,200 (the widest width swept); the B=256 deploy
 # sends at most 6,400. K4 (cartpole): it wins at 12,288 and loses at
-# 16,384; the deploy sends at most 2,048.
+# 16,384; the deploy sends at most 2,048. K1 on the rocket's projection
+# (always cold): the 16-thread tile wins up to 3,840 and loses from
+# 15,360 (0.386 against 0.244 ms queued: the per-thread kernel runs all
+# 25 line-search candidates, but with fewer instructions a scenario);
+# the B=256 deploy sends 32-1,024 (the rollouts, the compacted sweeps)
+# and 15,360 (the full sweeps). K1 on the hopper model: the 32-thread
+# tile wins at every width swept, 32 to 51,200, cold and warm (the
+# per-thread kernel keeps J in local memory: 7.7 against 1.65 ms cold at
+# 5,120), so its 51,200 is the end of the sweep; the deploy sends at
+# most 5,120.
 FUSED_IP_TILE_MAX_B = {("fused_ip", "cartpole_friction"): 16384,
                        ("fused_ip", "acrobot_impact"): 204800,
                        ("fused_ip", "planar_push"): 51200,
+                       ("fused_ip", "rocket_projection"): 3840,
+                       ("fused_ip", "hopper"): 51200,
                        ("fused_rollout", "cartpole_friction"): 12288}
 FUSED_ROLLOUT_FUNCTORS = {"cartpole_friction": (2, 1)}  # name -> (nq, nu)
 BATCHED_SOLVE_SHAPES = frozenset({(10, 8), (10, 1), (35, 13), (6, 6),

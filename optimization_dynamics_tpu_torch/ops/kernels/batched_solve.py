@@ -5,13 +5,14 @@ Replaces the Pallas kernel ``batched_solve`` of
 ``pl.pallas_call`` at ``:119``; QR body ``_qr_solve_block``, ``:34``). On
 the main path it is the IFT multi-right-hand-side solve of every
 derivative sweep (n=10, k=8, B x (T-1) = 25,600 systems at the deploy
-width) and the Newton solve of ``make_solver_batched`` (n=10, k=1), which
-runs on the card for a model without a fused-IP device functor: the
-hopper's every IP iteration at (20, 1) and every IFT solve at (20, 13),
-B x (T-1) = 5,120 systems at its deploy width; the rocket's two chained
-solves a step, the thrust projection's at (10, 1) and (10, 4) and the
-implicit-midpoint solve's at (12, 1) and (12, 16), B x (T-1) = 15,360
-systems a sweep at its deploy width.
+width) and the Newton solve of ``make_solver_batched``, which runs on
+the card for a solve without a fused-IP device functor: the rocket's
+implicit-midpoint solve at (12, 1), with its IFT solves at (12, 16) and
+the thrust projection's at (10, 4), B x (T-1) = 15,360 systems a sweep
+at its deploy width; the hopper model's IFT solves at (20, 13), 5,120
+systems. The Newton shapes of solves that K1 runs whole, (10, 1) for the
+rocket's projection and (20, 1) for the hopper model, are compiled and
+tested but run on no deploy path on the card.
 
 What bounds it on an H100: the arithmetic is small (a 10x10 system with
 8 right-hand sides is ~4k flops on 260 values), so the kernel is bound by

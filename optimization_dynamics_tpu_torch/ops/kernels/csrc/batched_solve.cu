@@ -11,9 +11,10 @@
 // Shapes: (10, 8) and (10, 1) for cartpole's IFT and Newton solves, (35,
 // 13) for planar push's IFT solve, (6, 6) for the acrobot's IFT solve and
 // (2, 1), (2, 6) for the Newton and IFT solves of the acrobot without
-// joint limits, (20, 1), (20, 13) for the hopper's and (12, 1), (12, 16),
-// (10, 1), (10, 4) for the rocket's midpoint and thrust-projection
-// solves (no fused-IP functor).
+// joint limits, (20, 1), (20, 13) for the hopper model's and (12, 1),
+// (12, 16), (10, 1), (10, 4) for the rocket's midpoint and
+// thrust-projection solves (the Newton solves at (20, 1) and (10, 1) run
+// inside K1 on a deploy; the shapes stay compiled and tested).
 //
 // Three kernels:
 // * N <= UNROLL_MAX_N, narrow launches (the wrapper's cut,

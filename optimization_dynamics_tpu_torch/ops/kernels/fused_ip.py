@@ -61,6 +61,23 @@ are made by every thread of warp 0 alike, and a group sync hands them
 to warp 1. The wrapper sends it every launch up to its cut (every
 launch of the B=256 deploy); wider ones run the per-thread kernel.
 
+Two more functors run on the same two kernels, the residuals on which
+the reference's tests run its fused kernel besides these three:
+``rocket_projection`` (the rocket's thrust-cone projection, nz=10,
+ntheta=4; ``csrc/rocket_projection.cuh``, ``fused_ip_rocket.cu``): a
+16-thread tile, four a block, up to its cut of 3,840 scenarios (the
+rollout steps and the compacted sweeps of the rocket deploy), the
+per-thread kernel above (its 15,360-wide sweeps), where running all 25
+line-search candidates with fewer instructions a scenario beats the
+tile's redundant spine; and ``hopper`` (the hopper model, nz=20,
+ntheta=13; ``csrc/hopper.cuh``, ``fused_ip_hopper.cu``): a 32-thread
+tile, two a block, which wins at every width swept up to its cut of
+51,200 (the per-thread kernel keeps the 20x20 Jacobian and its QR in
+local memory), so every launch of the hopper deploy runs on the tile.
+The rocket's projection is not an ``ImplicitModel``: ``models/rocket.py::
+projection_model`` gives the residual, the cone spec and the functor,
+and the wrapper takes its cold starts as z0s.
+
 The plain version is the port of ``make_solver_batched`` (geometric
 schedule) with its Newton solve pinned to K2's plain QR. The wrapper
 takes it for CPU tensors only; for CUDA tensors it launches the kernel
@@ -176,8 +193,10 @@ def make_fused_ip_solver(model, opts: IPOptions, device, dtype
                          ) -> Callable:
     """Build ``solve(z0s (B, nz), thetas (B, ntheta)) -> IPSolution``: the
     drop-in for ``make_solver_batched`` (geometric schedule) that runs the
-    whole solve in K1. ``model`` is an ``ImplicitModel`` whose ``kernel``
-    names its device functor and ``kernel_params`` its constants."""
+    whole solve in K1. ``model`` has the fields this reads: ``residual``
+    and ``spec`` (the plain version's), ``kernel``, the name of its
+    device functor, and ``kernel_params``, its constants (an
+    ``ImplicitModel``, or the rocket's ``ProjectionModel``)."""
     plain = make_fused_ip_plain(model, opts, device, dtype)
     model_params = np.asarray(model.kernel_params, np.float64)
     ip_params = _ip_params(opts)

@@ -27,7 +27,7 @@ from optimization_dynamics_tpu_torch.ops.cones import (ConeSpec,
 from optimization_dynamics_tpu_torch.ops.linalg import batched_newton_solve
 
 __all__ = ["IPOptions", "IPSolution", "make_solver_batched",
-           "make_sensitivity_batched", "batched_jacobian"]
+           "make_sensitivity_batched", "batched_jacobian", "ls_trials"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +62,21 @@ class IPSolution(NamedTuple):
     converged: torch.Tensor
     r_vio: torch.Tensor
     kappa_vio: torch.Tensor
+
+
+class _LineSearchTrials:
+    """While ``on``, ``n`` adds up the line-search trials that the batched
+    solver's solves need: on each active lane of each Newton iteration the
+    candidates up to and including the first improving one, or all
+    ``max_ls`` where none improves. The solver evaluates all ``max_ls`` at
+    once; the count is the work of a search that stops at the first
+    improving candidate (an operation bound counts it)."""
+
+    on = False
+    n = 0
+
+
+ls_trials = _LineSearchTrials()
 
 
 def _cone_reset(spec: ConeSpec, device, dtype):
@@ -204,6 +219,9 @@ def _make_solver_batched(residual_fn: Callable, spec: ConeSpec,
             first = torch.argmax(improves.to(torch.int32), dim=1)
             best = torch.argmin(mc, dim=1)
             pick = torch.where(any_improve, first, best)
+            if ls_trials.on:
+                ls_trials.n += int(torch.where(any_improve, first + 1,
+                                               L)[active].sum())
             alpha = alphas[lanes, pick]
             new_merit = mc[lanes, pick]
             stalled_new = ~any_improve

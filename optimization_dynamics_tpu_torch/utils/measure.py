@@ -24,6 +24,10 @@ inputs, so two checkouts that both have this module time the same work:
   over the swing-up envelope, and their warm starts one iterate earlier
   (the derivative sweep's);
 * ``push_batch``: cold planar-push IP solves around the nominal pose;
+* ``rocket_projection_batch``: cold thrust-cone projections;
+* ``hopper_batch``: cold hopper-model IP solves about the standing pose;
+  ``hopper_deploy_batch``: the hopper deploy's own IP solves, along
+  open-loop rollouts of its initial controls;
 * ``hopper_systems``: K2's inputs at the hopper's shapes, the Newton
   and IFT systems of a derivative sweep;
 * ``rocket_systems``: K2's inputs at the rocket's four shapes, the
@@ -47,8 +51,9 @@ import torch
 __all__ = ["nvidia_smi", "cuda_ms", "device_ms", "launch_ms",
            "kernel_route", "routed", "cut_routed", "rel_residual",
            "ift_systems", "interleave_rows", "envelope_batch",
-           "warm_batch", "push_batch", "hopper_systems", "rocket_systems",
-           "rollout_batch",
+           "warm_batch", "push_batch", "rocket_projection_batch",
+           "hopper_batch", "hopper_deploy_batch", "hopper_systems",
+           "rocket_systems", "rollout_batch",
            "lqr_batch", "grow_batch"]
 
 
@@ -230,6 +235,79 @@ def push_batch(B: int, seed: int, device, dtype):
     q1_t = t(q1)
     return model, model.init_z(q1_t), model.theta_fn(
         t(q0), q1_t, t(u), pp.PlanarPushAux(h=0.1))
+
+
+def rocket_projection_batch(B: int, seed: int, device, dtype):
+    """Cold thrust-cone projections, the distribution of the reference's
+    fused-kernel test: u_bar = 6 N(0, 1) (inside, outside and above the
+    cone), u_max = 12.5, z0 the cold start ``init_z_proj``, from a numpy
+    seed. Returns ``(model, z0s, thetas)``, the model the projection's
+    ``ProjectionModel``."""
+    from optimization_dynamics_tpu_torch.examples import rocket as ex
+    from optimization_dynamics_tpu_torch.models import rocket
+
+    rng = np.random.default_rng(seed)
+    ths = np.concatenate([6.0 * rng.standard_normal((B, 3)),
+                          np.full((B, 1), ex.U_MAX)], axis=1)
+    z0s = rocket.init_z_proj(device, dtype).expand(B, rocket.NZ_PROJ)
+    return (rocket.projection_model(), z0s.contiguous(),
+            torch.as_tensor(ths, dtype=dtype, device=device))
+
+
+def hopper_batch(B: int, seed: int, device, dtype):
+    """Cold hopper-model solves about the standing pose, the distribution
+    of the reference's fused-kernel test: q0 = [0, 0.5 + foot_radius, 0,
+    0.5] + 0.005 N(0, 1), q1 = q0 + 0.001 N(0, 1), u = 0.1 N(0, 1),
+    friction 0.5 and 0.5, h = 0.05, from a numpy seed. Returns ``(model,
+    z0s, thetas)``."""
+    from optimization_dynamics_tpu_torch.models import hopper
+
+    rng = np.random.default_rng(seed)
+    q_nom = np.array([0.0, 0.5 + hopper.HopperParams().foot_radius, 0.0,
+                      0.5])
+    q0 = q_nom + 0.005 * rng.standard_normal((B, 4))
+    q1 = q0 + 0.001 * rng.standard_normal((B, 4))
+    u = 0.1 * rng.standard_normal((B, 2))
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    model = hopper.model()
+    aux = hopper.HopperAux(h=0.05, friction=t([0.5, 0.5]))
+    q1_t = t(q1)
+    return model, model.init_z(q1_t), model.theta_fn(t(q0), q1_t, t(u), aux)
+
+
+def hopper_deploy_batch(n: int, seed: int, device, dtype):
+    """``n`` of the hopper deploy's own IP solves: the step inputs of
+    ceil(n / (T-1)) open-loop rollouts of the deploy's initial controls
+    (gait 1), each perturbed from a numpy seed (the two real controls by
+    0.1 N(0, 1), the first step's configurations by 0.005 N(0, 1), the
+    deploy's x0 scatter), rolled out by the deploy's own dynamics on
+    ``device``, so the solves meet the contact modes those controls
+    reach. Row b (T-1) + t is scenario b's step t; every solve cold, as a
+    rollout's. Returns ``(model, z0s, thetas)``."""
+    from optimization_dynamics_tpu_torch.examples import hopper as ex
+    from optimization_dynamics_tpu_torch.models import hopper
+
+    prob, x0, us0, _ = ex.build_deploy_problem(device, dtype=dtype,
+                                               accelerator_ip=True)
+    model = hopper.model()
+    aux = hopper.HopperAux(h=ex.H)
+    B = -(-n // (ex.T - 1))
+    rng = np.random.default_rng(seed)
+    noise = np.zeros((B, ex.T - 1, ex.NU))
+    noise[:, :, 0:ex.NUS] = 0.1 * rng.standard_normal((B, ex.T - 1, ex.NUS))
+    noise[:, 0, ex.NUS:] = 0.005 * rng.standard_normal((B, ex.NU - ex.NUS))
+    uss = us0[None] + torch.as_tensor(noise, dtype=dtype, device=device)
+    xs = ex.deploy_x0s(x0, B, seed)
+    z0s, ths = [], []
+    for t in range(ex.T - 1):
+        us = uss[:, t]
+        x8 = us[:, 2:10] if t == 0 else xs[:, 0:8]
+        q1 = x8[:, 4:8]
+        z0s.append(model.init_z(q1))
+        ths.append(model.theta_fn(x8[:, 0:4], q1, us[:, 0:2], aux))
+        xs = prob.dynamics_batched(t, xs, us)
+    flat = lambda a: torch.stack(a, dim=1).reshape(B * (ex.T - 1), -1)[:n]
+    return model, flat(z0s).contiguous(), flat(ths).contiguous()
 
 
 def hopper_systems(B: int, seed: int, device, dtype):

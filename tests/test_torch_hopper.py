@@ -215,7 +215,9 @@ def test_specs_init_z_and_theta_packing_match_jax():
     tm.spec.validate()
     for f in ("nq", "nu", "nz", "ntheta", "q_sel", "th_q0", "th_q1", "th_u"):
         assert getattr(tm, f) == getattr(jm, f), f
-    assert tm.kernel is None
+    # the CUDA functor of K1 and its constants, the params
+    assert tm.kernel == "hopper"
+    assert tm.kernel_params == tuple(TP) == tuple(P)
     np.testing.assert_array_equal(tm.init_z(_t(q2)).numpy(),
                                   np.asarray(jax.vmap(jm.init_z)(q2)))
     # one vector packs as a batch does; friction from the aux

@@ -99,7 +99,8 @@ def test_tile_functors_fit_a_tile():
             assert name in _build.SIGNATURES
             assert instantiated.count(name) == 1
     assert widths == {"cartpole_friction": 16, "acrobot_impact": 8,
-                      "planar_push": 64}
+                      "planar_push": 64, "rocket_projection": 16,
+                      "hopper": 32}
     assert _build.fused_ip_narrow_symbol("planar_push", torch.float32) == \
         "odt_fused_ip_group_planar_push_f32"
     assert _build.fused_ip_narrow_symbol("cartpole_friction",
@@ -281,6 +282,23 @@ def _cpu_ip_batch(model_name, dtype):
 
         model, z0s, ths = push_batch(3, 5, torch.device("cpu"), dtype)
         return model, IPOptions(**DEPLOY_IP_ACCEL), z0s, ths
+    if model_name == "rocket_projection":
+        from optimization_dynamics_tpu_torch.examples import rocket as ex
+        from optimization_dynamics_tpu_torch.utils.measure import (
+            rocket_projection_batch)
+
+        model, z0s, ths = rocket_projection_batch(3, 5, torch.device("cpu"),
+                                                  dtype)
+        return model, IPOptions(r_tol=ex.DEPLOY_R_TOL_ACCEL,
+                                kappa_tol=ex.PROJ_KAPPA_TOL), z0s, ths
+    if model_name == "hopper":
+        from optimization_dynamics_tpu_torch.examples.hopper import (
+            DEPLOY_IP_ACCEL)
+        from optimization_dynamics_tpu_torch.utils.measure import (
+            hopper_batch)
+
+        model, z0s, ths = hopper_batch(3, 5, torch.device("cpu"), dtype)
+        return model, IPOptions(**DEPLOY_IP_ACCEL), z0s, ths
     from optimization_dynamics_tpu_torch.examples.cartpole import (
         DEPLOY_IP_ACCEL)
     from optimization_dynamics_tpu_torch.models import cartpole
@@ -294,14 +312,15 @@ def _cpu_ip_batch(model_name, dtype):
     return model, IPOptions(**DEPLOY_IP_ACCEL), z0s, ths
 
 
-@pytest.mark.parametrize("model_name", ["cartpole_friction", "planar_push"])
+@pytest.mark.parametrize("model_name", ["cartpole_friction", "planar_push",
+                                        "rocket_projection", "hopper"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_fused_ip_wrapper_runs_plain_on_cpu_at_any_width(dtype, model_name,
                                                          monkeypatch):
     """On CPU tensors the K1 wrapper runs its plain version whatever the
-    width, below, at and above the functor's cut (set to 2 here: cartpole's
-    tile kernel, push's group kernel), and counts no launch of any
-    kernel."""
+    width, below, at and above the functor's cut (set to 2 here: cartpole's,
+    the rocket projection's and the hopper model's tile kernels, push's
+    group kernel), and counts no launch of any kernel."""
     from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import (
         fused_ip, make_fused_ip_plain, make_fused_ip_solver)
 

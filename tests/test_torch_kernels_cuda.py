@@ -55,7 +55,16 @@ is to the plain version. K3 at the hopper's (16, 10), whose tile kernel
 factors Quu once in shared memory, with the hopper's ragged mask and an
 indefinite Quu on every fifth lane, as at the other shapes. K2 at the
 rocket's (12, 1), (12, 16), (10, 4) and (10, 1) on its own Newton and
-IFT systems through both kernels, as at the hopper's shapes.
+IFT systems through both kernels, as at the hopper's shapes. K1 at the
+rocket's thrust projection (nz=10, a 16-thread tile) and the hopper model
+(nz=20, a 32-thread tile): each of its two kernels, forced by the cut,
+against the plain version as K1n (float64 flags on >= 99.5% of lanes,
+iteration counts on >= 99%, z within 1e-10 where both converge in the
+same count), in float32 the rocket's thrusts within 1e-4 and in the cone,
+the hopper model's configurations within 2e-4; ragged batches, the route
+by width, and the wrapper raising on a wrong functor or shape; the
+rocket's and the hopper model's deploys launch K1 and no K2 at (10, 1)
+or (20, 1).
 """
 
 import numpy as np
@@ -104,10 +113,13 @@ from optimization_dynamics_tpu_torch.solver.interior_point import IPOptions
 from optimization_dynamics_tpu_torch.utils.measure import (
     cut_routed,
     grow_batch,
+    hopper_batch,
+    hopper_deploy_batch,
     interleave_rows,
     lqr_batch,
     push_batch,
     rel_residual,
+    rocket_projection_batch,
     rocket_systems,
     rollout_batch,
     routed,
@@ -1209,8 +1221,10 @@ def test_batched_solve_hopper_shapes_match_plain(card, dtype, k):
 
 def test_hopper_deploy_launches_k2_and_k3(card):
     """One inner iteration of the hopper deploy (float32, B=8) with K3:
-    K2 runs its group kernel at (20, 1) and (20, 13), K3 its tile kernel
-    at (16, 10), and the outputs are finite."""
+    every IP solve runs in K1 on the ``hopper`` functor (its tile kernel
+    at these widths), so K2 runs its group kernel at (20, 13) only, the
+    IFT solves, and none at (20, 1); K3 its tile kernel at (16, 10); the
+    outputs are finite."""
     import dataclasses
 
     from optimization_dynamics_tpu_torch.solver.ilqr_segmented import (
@@ -1224,11 +1238,14 @@ def test_hopper_deploy_launches_k2_and_k3(card):
                                   max_iter_schedule=[1])
     shapes = dict(batched_solve.shapes)
     tiles = riccati_backward.tile_launches
+    k1_tiles = fused_ip.widths.copy()
     res = solve(ex.deploy_x0s(x0, 8, seed=0), us0)
     assert bool(torch.isfinite(res.xs).all() & torch.isfinite(res.us).all())
-    for nk in ((20, 1), (20, 13)):
-        assert batched_solve.shapes[nk] > shapes.get(nk, 0), nk
+    assert batched_solve.shapes[20, 13] > shapes.get((20, 13), 0)
+    assert batched_solve.shapes[20, 1] == shapes.get((20, 1), 0)
     assert riccati_backward.tile_launches == tiles + 1
+    new = fused_ip.widths - k1_tiles
+    assert sum(new.values()) > 0 and {k for k, _ in new} == {"tile"}
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -1261,8 +1278,10 @@ def test_batched_solve_rocket_shapes_match_plain(card, dtype, nk):
 
 
 def test_rocket_deploy_launches_k2_at_its_shapes(card):
-    """One inner iteration of the rocket deploy (float32, B=8): K2 runs at
-    (10, 1), (10, 4), (12, 1) and (12, 16) and nowhere else, the outputs
+    """One inner iteration of the rocket deploy (float32, B=8): every
+    thrust projection runs in K1 on the ``rocket_projection`` functor, so
+    K2 runs at (10, 4) (the projection's IFT solves), (12, 1) and (12, 16)
+    (the midpoint solve's) and nowhere else, not at (10, 1); the outputs
     are finite and every lane's thrust is in the cone."""
     import dataclasses
 
@@ -1277,7 +1296,149 @@ def test_rocket_deploy_launches_k2_at_its_shapes(card):
     solve = make_segmented_solver(prob, opts, 8, x0.dtype, card,
                                   max_iter_schedule=[1])
     batched_solve.shapes.clear()
+    launches = fused_ip.launches
     res = solve(ex.deploy_x0s(x0, 8, seed=0), us0)
+    assert fused_ip.launches > launches
     assert bool(torch.isfinite(res.xs).all() & torch.isfinite(res.us).all())
-    assert set(batched_solve.shapes) == {(10, 1), (10, 4), (12, 1), (12, 16)}
+    assert set(batched_solve.shapes) == {(10, 4), (12, 1), (12, 16)}
     assert bool(ex.thrust_cone_ok(res.us).all())
+
+
+# K1 at the rocket's thrust projection (nz=10) and the hopper model
+# (nz=20): each of its two kernels against the plain version
+
+def _rocket_proj_opts():
+    from optimization_dynamics_tpu_torch.examples import rocket as ex
+
+    return IPOptions(r_tol=ex.DEPLOY_R_TOL_ACCEL, kappa_tol=ex.PROJ_KAPPA_TOL)
+
+
+def _model_case(name, case, card, dtype):
+    """(model, IP options, z0s, thetas): the rocket's cold projections
+    (u_bar = 6 N(0, 1)); the hopper model's solves about its standing
+    pose (``hopper_batch``), cold or warm-started one iterate earlier, and
+    along its deploy's rollouts (``hopper_deploy_batch``)."""
+    if name == "rocket_projection":
+        model, z0s, ths = rocket_projection_batch(2000, 61, card, dtype)
+        return model, _rocket_proj_opts(), z0s, ths
+    opts = IPOptions(**hopper_ex.DEPLOY_IP_ACCEL)
+    if case == "deploy":
+        model, z0s, ths = hopper_deploy_batch(600, 62, card, dtype)
+        return model, opts, z0s, ths
+    model, z0s, ths = hopper_batch(2000, 63, card, dtype)
+    if case == "warm":
+        z0s, ths = warm_batch(make_fused_ip_plain(model, opts, card, dtype),
+                              model, z0s, ths, 64)
+    return model, opts, z0s, ths
+
+
+def _assert_model_agrees(name, sk, sp, dtype):
+    """float64: flags on >= 99.5% of lanes and iteration counts on >= 99%
+    as the plain version's, z within 1e-10 where both converge in the
+    same count; float32: converged counts within 1%, the rocket's thrusts
+    within 1e-4 and in the cone (1e-4), the hopper model's configurations
+    within 2e-4, where both converge."""
+    ck, cp = sk.converged.cpu().numpy(), sp.converged.cpu().numpy()
+    both = ck & cp
+    assert bool(torch.isfinite(sk.z).all())
+    assert both.sum() > 0.9 * len(ck)
+    if dtype == torch.float64:
+        assert (ck == cp).mean() >= 0.995
+        same_it = (sk.iterations == sp.iterations).cpu().numpy()
+        assert same_it.mean() >= 0.99
+        assert (sk.z - sp.z).abs().cpu().numpy()[both & same_it].max() \
+            <= 1e-10
+    else:
+        assert abs(int(ck.sum()) - int(cp.sum())) <= 0.01 * len(ck)
+        if name == "rocket_projection":
+            u = sk.z[:, 0:3].cpu().numpy()[both]
+            assert (np.linalg.norm(u[:, 0:2], axis=1)
+                    <= u[:, 2] + 1e-4).all()
+            assert (sk.z - sp.z)[:, 0:3].abs().cpu().numpy()[both].max() \
+                <= 1e-4
+        else:
+            assert (sk.z - sp.z)[:, 0:4].abs().cpu().numpy()[both].max() \
+                <= 2e-4
+
+
+MODEL_CASES = [("rocket_projection", "cold"), ("hopper", "cold"),
+               ("hopper", "warm"), ("hopper", "deploy")]
+
+
+@pytest.mark.parametrize("route", ["tile", "thread"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name,case", MODEL_CASES)
+def test_fused_ip_model_kernels_match_plain(card, name, case, dtype, route):
+    """K1 on ``rocket_projection`` and ``hopper``: the tile kernel (16 and
+    32 threads a scenario) and the per-thread kernel, each forced by the
+    wrapper's cut, against the plain version."""
+    model, opts, z0s, ths = _model_case(name, case, card, dtype)
+    kern = routed(name, route == "tile",
+                  make_fused_ip_solver(model, opts, card, dtype))
+    launches, tiles = fused_ip.launches, fused_ip.tile_launches
+    sk = kern(z0s, ths)
+    assert fused_ip.launches == launches + 1
+    assert fused_ip.tile_launches == tiles + (route == "tile")
+    sp = make_fused_ip_plain(model, opts, card, dtype)(z0s, ths)
+    _assert_model_agrees(name, sk, sp, dtype)
+
+
+@pytest.mark.parametrize("name", ["rocket_projection", "hopper"])
+@pytest.mark.parametrize("B", [1, 3, 5, 65])
+def test_fused_ip_model_tile_kernel_ragged_batch(card, name, B):
+    """The tile kernels (four 16-thread tiles a 64-thread block for the
+    rocket's projection, two 32-thread tiles for the hopper model) on
+    batches that are not a whole number of tiles a block: every lane
+    solved, float64 flags and iteration counts as the plain version's."""
+    model, opts, z0s, ths = _model_case(name, "cold", card, torch.float64)
+    z0s, ths = z0s[:B], ths[:B]
+    tiles = fused_ip.tile_launches
+    sk = make_fused_ip_solver(model, opts, card, torch.float64)(z0s, ths)
+    assert fused_ip.tile_launches == tiles + 1
+    sp = make_fused_ip_plain(model, opts, card, torch.float64)(z0s, ths)
+    assert tuple(sk.z.shape) == tuple(z0s.shape)
+    np.testing.assert_array_equal(sk.converged.cpu().numpy(),
+                                  sp.converged.cpu().numpy())
+    np.testing.assert_array_equal(sk.iterations.cpu().numpy(),
+                                  sp.iterations.cpu().numpy())
+    assert float((sk.z - sp.z).abs().max()) <= 1e-10
+
+
+@pytest.mark.parametrize("name", ["rocket_projection", "hopper"])
+def test_fused_ip_model_kernels_route_by_width(card, name):
+    """Up to FUSED_IP_TILE_MAX_B["fused_ip", name] scenarios the tile
+    kernel runs, one past it the per-thread kernel (the inputs repeated to
+    the width), each counted by kernel and width."""
+    limit = FUSED_IP_TILE_MAX_B["fused_ip", name]
+    model, opts, z0s, ths = _model_case(name, "cold", card, torch.float32)
+    z0s, ths = grow_batch([z0s, ths], limit + 1)
+    solve = make_fused_ip_solver(model, opts, card, torch.float32)
+    for B, route in ((limit, "tile"), (limit + 1, "thread")):
+        width = fused_ip.widths[route, B]
+        tiles = fused_ip.tile_launches
+        sol = solve(z0s[:B], ths[:B])
+        assert fused_ip.widths[route, B] == width + 1
+        assert fused_ip.tile_launches == tiles + (route == "tile")
+        assert bool(torch.isfinite(sol.z).all())
+
+
+def test_fused_ip_model_wrappers_raise_on_wrong_functor_or_shape(card):
+    """K1's wrapper raises on CUDA tensors whose widths are not the
+    functor's, and on a functor it was not compiled for."""
+    _, _, z0r, thr = _model_case("rocket_projection", "cold", card,
+                                 torch.float32)
+    hop, _, z0h, thh = _model_case("hopper", "cold", card, torch.float32)
+    hp = np.asarray(hop.kernel_params, np.float64)
+    none = np.zeros(0)
+    ip = np.zeros(11)
+    plain = lambda *a: None
+    with pytest.raises(ValueError):
+        fused_ip(z0r, thr, "hopper", hp, ip, plain)
+    with pytest.raises(ValueError):
+        fused_ip(z0h, thh, "rocket_projection", none, ip, plain)
+    with pytest.raises(ValueError):
+        fused_ip(z0r, thr[:, :3], "rocket_projection", none, ip, plain)
+    with pytest.raises(ValueError):
+        fused_ip(z0h[:, :19], thh, "hopper", hp, ip, plain)
+    with pytest.raises(ValueError):
+        fused_ip(z0r, thr, "rocket_midpoint", none, ip, plain)

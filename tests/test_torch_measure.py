@@ -2,7 +2,7 @@
 the CPU: the kernel inputs are the same for the same seed, the relative
 residual reads an exact solve as exact, and ``kernel_route`` and
 ``routed`` set and restore the wrappers' width cuts; the measuring tools
-take the rocket."""
+take the rocket and the hopper model."""
 
 import argparse
 import importlib.util
@@ -17,7 +17,10 @@ from optimization_dynamics_tpu_torch.ops.kernels._build import (
 )
 from optimization_dynamics_tpu_torch.utils.measure import (
     envelope_batch,
+    hopper_batch,
+    hopper_deploy_batch,
     hopper_systems,
+    rocket_projection_batch,
     rocket_systems,
     kernel_route,
     push_batch,
@@ -31,7 +34,10 @@ CPU = torch.device("cpu")
 
 
 @pytest.mark.parametrize("make, nz, nth", [(envelope_batch, 10, 8),
-                                           (push_batch, 35, 13)])
+                                           (push_batch, 35, 13),
+                                           (rocket_projection_batch, 10, 4),
+                                           (hopper_batch, 20, 13),
+                                           (hopper_deploy_batch, 20, 13)])
 def test_batches_follow_their_seed(make, nz, nth):
     _, z0, th = make(5, 0, CPU, torch.float64)
     _, z0b, thb = make(5, 0, CPU, torch.float64)
@@ -109,6 +115,13 @@ def test_kernel_times_takes_the_rocket(monkeypatch):
     with pytest.raises(SystemExit, match="needs a CUDA device"):
         _tool("kernel_times").main(["--model", "rocket",
                                     "--linalg-widths", "512,15360"])
+
+
+def test_kernel_times_takes_the_hopper(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        _tool("kernel_times").main(["--model", "hopper",
+                                    "--widths", "512,5120"])
 
 
 def test_warm_batch_starts_from_the_earlier_solution():

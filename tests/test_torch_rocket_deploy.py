@@ -213,3 +213,37 @@ def test_short_deploy_matches_jax(ip):
     # the projected thrust is in the cone on every lane
     assert float((rt.us - us0).abs().max()) > 1.0
     assert bool(tex.thrust_cone_ok(rt.us).all())
+
+
+@pytest.mark.slow
+def test_full_horizon_deploy_matches_jax_bench_cpu_cell():
+    """The reference bench's CPU rocket cell (``bench.py:443-446``): B=4,
+    float64, T=61, the CPU IP branch, the per-AL-round inner budgets
+    (15, 15, 25, 25, 30), ``al_stall_rounds=2``, compaction on. Both
+    segmented solvers get the port's scenarios (``deploy_x0s``, numpy
+    seed 0) and initial controls. Compared as the short deploy is:
+    objective rtol 1e-6, controls atol 1e-6, iterations, converged flags
+    and dispatch counters exactly."""
+    jprob, _, _, jopts = jex.build_deploy_problem(False, dtype=jnp.float64)
+    tprob, x1, us0, topts = tex.build_deploy_problem(
+        "cpu", dtype=F64, accelerator_ip=False)
+    x0s = tex.deploy_x0s(x1, 4, seed=0)
+    sched = list(tex.DEPLOY_MAX_ITER_SCHEDULE)
+    ts = make_segmented_solver(tprob, topts, 4, F64, "cpu",
+                               max_iter_schedule=sched,
+                               al_stall_rounds=tex.DEPLOY_AL_STALL_ROUNDS)
+    rt = ts(x0s, us0)
+    js = jax_segmented_solver(jprob, jopts, 4, dtype=jnp.float64,
+                              max_iter_schedule=sched,
+                              al_stall_rounds=tex.DEPLOY_AL_STALL_ROUNDS)
+    rj = js(jnp.asarray(x0s.numpy()), jnp.asarray(us0.numpy()))
+    np.testing.assert_allclose(rt.objective.numpy(),
+                               np.asarray(rj.objective), rtol=1e-6)
+    np.testing.assert_allclose(rt.us.numpy(), np.asarray(rj.us), atol=1e-6)
+    np.testing.assert_array_equal(rt.iterations.numpy(),
+                                  np.asarray(rj.iterations))
+    np.testing.assert_array_equal(rt.converged.numpy(),
+                                  np.asarray(rj.converged))
+    assert dict(ts.stats) == dict(js.stats)
+    assert bool(torch.isfinite(rt.xs).all())
+    assert bool(tex.thrust_cone_ok(rt.us).all())

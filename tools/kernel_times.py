@@ -1,6 +1,7 @@
 """Time the port's kernels on the card (K1, K1a, K1n, K4, K2 at (35, 13),
 (10, 8), (6, 6), (20, 1) and (20, 13), K3; or K2 at the rocket's (10, 1),
-(10, 4), (12, 1) and (12, 16)), to compare two checkouts in
+(10, 4), (12, 1) and (12, 16) and K1 on its thrust projection; or K1 on
+the hopper model), to compare two checkouts in
 one call, and each two-kernel pair's narrow kernel (tile or group)
 against its per-thread kernel by width.
 
@@ -8,7 +9,7 @@ Run on a machine with one CUDA card:
 
     python tools/kernel_times.py [--root DIR]
                                  [--model cartpole|acrobot|planar_push
-                                  |rocket]
+                                  |rocket|hopper]
                                  [--widths 1600,6400]
                                  [--linalg-widths 512,25600,102400]
 
@@ -73,6 +74,21 @@ contiguous, as the solver passes them), one call and queued beside
 ``torch.linalg.solve``; and at each of ``--linalg-widths`` each shape's
 tile and per-thread kernel in turn, on those systems repeated to the
 width, where the four cuts of ``BATCHED_SOLVE_TILE_MAX_B`` are measured.
+
+``--model rocket`` and ``--model hopper`` also time K1 on their functors
+(``rocket_projection``, nz=10, at the deploy's projection options;
+``hopper``, nz=20, at the hopper deploy's accelerator IP options),
+through the wrapper's route at the deploy's widths: the rocket's 512 (a
+rollout step's B x alphas) and 15,360 (the sweep's B x (T-1)) cold
+projections (``rocket_projection_batch`` seeds 71 and 70); the hopper
+model's 512 cold and 5,120 cold and warm solves of its deploy
+(``hopper_deploy_batch`` seeds 82, 80, 81, warm-started from K1's
+solutions one iterate earlier). At each of ``--widths`` they run through
+the tile and the per-thread kernel in turn (``routed``; the rocket's
+projections cold, as the deploy's always are, the hopper model's cold
+and warm), where ``FUSED_IP_TILE_MAX_B``'s cuts for the two functors are
+measured; K1 there is timed one call and queued. A checkout without
+these functors skips them.
 
 ``ms`` is the median of CUDA events around one call over ``--reps``
 calls after a warm-up, host work inside the call included, the time a
@@ -143,11 +159,78 @@ def _rocket_k2(m, args, dev, f32, batched_solve, _build) -> dict:
     return out
 
 
+def _k1_functor(m, args, dev, f32, name) -> dict:
+    """K1 on the rocket's ``rocket_projection`` or the ``hopper`` functor:
+    through the wrapper's route at the deploy's widths (the rocket's 512
+    and 15,360 cold projections, ``rocket_projection_batch`` seeds 71 and
+    70; the hopper model's 512 cold and 5,120 cold and warm deploy solves,
+    ``hopper_deploy_batch`` seeds 82, 80 and 81), and at each of
+    ``--widths`` through the tile and the per-thread kernel in turn (the
+    rocket's cold, the hopper model's cold and warm), one call and
+    queued."""
+    import torch
+
+    from optimization_dynamics_tpu_torch.ops.kernels import fused_ip as k1
+    from optimization_dynamics_tpu_torch.solver.interior_point import (
+        IPOptions)
+
+    if name == "rocket":
+        from optimization_dynamics_tpu_torch.examples import rocket as ex
+
+        opts = IPOptions(r_tol=ex.DEPLOY_R_TOL_ACCEL,
+                         kappa_tol=ex.PROJ_KAPPA_TOL)
+
+        def batches(B, seeds=(70,)):
+            return {"cold": m.rocket_projection_batch(B, seeds[0], dev,
+                                                      f32)}
+        deploy = {512: (71,), 15360: (70,)}
+    else:
+        from optimization_dynamics_tpu_torch.examples import hopper as ex
+
+        opts = IPOptions(**ex.DEPLOY_IP_ACCEL)
+
+        def batches(B, seeds=(80, 81)):
+            model, z0c, thc = m.hopper_deploy_batch(B, seeds[0], dev, f32)
+            out = {"cold": (model, z0c, thc)}
+            if len(seeds) > 1:
+                out["warm"] = (model, *m.warm_batch(
+                    k1.make_fused_ip_solver(model, opts, dev, f32), model,
+                    z0c, thc, seeds[1]))
+            return out
+        deploy = {512: (82,), 5120: (80, 81)}
+
+    def time_ip(solve, z0, th) -> dict:
+        sol = solve(z0, th)
+        return dict(ms=m.cuda_ms(lambda: solve(z0, th), reps=args.reps),
+                    ms_device=m.device_ms(lambda: solve(z0, th),
+                                          reps=args.reps),
+                    converged=int(sol.converged.sum()),
+                    iterations=int(sol.iterations.sum()),
+                    max_iterations=int(sol.iterations.max()))
+
+    out = {}
+    for B, seeds in deploy.items():
+        for case, (model, z0, th) in batches(B, seeds).items():
+            kern = k1.make_fused_ip_solver(model, opts, dev, f32)
+            out["k1_%s_%s_%d" % (name, case, B)] = time_ip(kern, z0, th)
+    for w in (int(w) for w in filter(None, args.widths.split(","))):
+        for case, (model, z0, th) in batches(w).items():
+            kern = k1.make_fused_ip_solver(model, opts, dev, f32)
+            out["k1_%s_%s_sweep_%d" % (name, case, w)] = {
+                route: time_ip(m.routed(model.kernel, route == "tile",
+                                        kern), z0, th)
+                for route in ("tile", "thread")}
+            del z0, th
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--model",
-                    choices=("cartpole", "acrobot", "planar_push", "rocket"),
+                    choices=("cartpole", "acrobot", "planar_push", "rocket",
+                             "hopper"),
                     default="cartpole")
     ap.add_argument("--widths", default="")
     ap.add_argument("--linalg-widths", default="")
@@ -178,8 +261,12 @@ def main(argv=None) -> None:
     dev, f32 = torch.device("cuda"), torch.float32
     _build.load_library()
     out = dict(root=str(Path(args.root).resolve()), card=m.nvidia_smi())
-    if args.model == "rocket":
-        out.update(_rocket_k2(m, args, dev, f32, batched_solve, _build))
+    if args.model in ("rocket", "hopper"):
+        if args.model == "rocket":
+            out.update(_rocket_k2(m, args, dev, f32, batched_solve, _build))
+        functor = {"rocket": "rocket_projection", "hopper": "hopper"}
+        if functor[args.model] in _build.FUSED_IP_FUNCTORS:
+            out.update(_k1_functor(m, args, dev, f32, args.model))
         print(json.dumps(out), flush=True)
         return
 

@@ -21,10 +21,11 @@ Run from the repository root on a machine with one CUDA card:
 ``examples/planar_push.py``, ``examples/acrobot.py``,
 ``examples/hopper.py`` or ``examples/rocket.py``, ``main --deploy``),
 which prints its own summary, then prints one JSON line: the K1 (K1n for
-push, K1a for acrobot), K2, K3 and K4 launches of the solve, each one's
+push, K1a for acrobot; the ``hopper`` and ``rocket_projection``
+functors), K2, K3 and K4 launches of the solve, each one's
 launches by kernel (tile, group, or per-thread) and width, K2's by (n,
-k) and by (n, k, kernel, width) (the rocket's: the solve's alone, not
-its thrust-cone check's), the mean
+k) and by (n, k, kernel, width) (the rocket's K1 and K2: the solve's
+alone, not its thrust-cone check's), the mean
 and median converged objective and, with ``--lanes``, each lane's flag,
 objective and inner iterations. The batch defaults to the deploy width:
 512 for cartpole, 256 for push, acrobot, hopper and the rocket (the
@@ -107,9 +108,12 @@ def deploy(args) -> None:
     res = ex.main(["--deploy", "--device", "cuda", "--dtype", args.dtype,
                    "--batch", str(B)] + _kernel_flags(args)
                   + ["--log"] * args.log)
-    # K2's launches by (n, k, kernel, width); the rocket's example checks
-    # the thrust cone with K2 after the solve, and keeps the solve's own
+    # K2's launches by (n, k, kernel, width) and K1's by (kernel, width);
+    # the rocket's example checks the thrust cone with K1 after the
+    # solve, and keeps the solve's own
     k2_launches = getattr(ex.main, "k2_launches", k2.shape_widths)
+    k1_launches, _, k1_widths = getattr(ex.main, "k1_launches", (
+        k1.launches, k1.tile_launches, k1.widths))
     k2_widths, k2_shapes = Counter(), Counter()
     for (n, k, route, w), c in k2_launches.items():
         k2_widths[route, w] += c
@@ -120,11 +124,11 @@ def deploy(args) -> None:
                fused_rollout=args.fused_rollout,
                riccati_kernel=args.riccati_kernel,
                converged=int(conv.sum()),
-               launches={"fused_ip": k1.launches,
+               launches={"fused_ip": k1_launches,
                          "batched_solve": sum(k2_launches.values()),
                          "fused_rollout": k4.launches,
                          "riccati": k3.launches},
-               fused_ip_widths=_by_width(k1.widths),
+               fused_ip_widths=_by_width(k1_widths),
                fused_rollout_widths=_by_width(k4.widths),
                batched_solve_widths=_by_width(k2_widths),
                batched_solve_shapes={"%d_%d" % nk: n for nk, n in
