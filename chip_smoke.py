@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``optimization_dynamics_tpu_torch/ops/
-kernels/csrc`` and runs eighteen phases, each printing one ``#`` line:
+kernels/csrc`` and runs nineteen phases, each printing one ``#`` line:
 
 0. card: ``nvidia-smi`` name and power limit, torch and CUDA versions,
    kernel build time in all and per source, and what ``ptxas`` reported
@@ -197,7 +197,24 @@ kernels/csrc`` and runs eighteen phases, each printing one ``#`` line:
    5,120 (the sweep's width, numpy seed 80) cold and warm-started from
    K1's solutions one iterate earlier (seed 81), and 512 cold (a rollout
    step's, seed 82), as phase 16, float32 configurations within 2e-4 (the
-   reference's bound for the hopper model).
+   reference's bound for the hopper model);
+18. the scalar path: the cartpole friction swing-up (``examples/
+   cartpole.py::build_problem``, float64, T=51, nothing cut) solved by
+   the scalar AL-iLQR ``solver.ilqr.solve`` on the card: converged, the
+   constraint violation below con_tol, the final state within 1e-2 of
+   the goal, the objective within 5% of one of the goldens of
+   ``tests/goldens.json``; K1's tile kernel launched at width 1 (each
+   rollout step) and at width 50 (each derivative sweep), K2 at (10, 8)
+   (the sweeps' IFT solves), their launches by kernel and width printed
+   with the wall; the derivative sweep at the solution (width 50: K1's
+   tile with a ragged last block, K2 at (10, 8)) against the same sweep
+   on a CPU copy of the problem, y within 1e-12, the Jacobians within
+   1e-10; then ``simulate`` of the acrobot
+   (``tests/test_simulate.py``'s inputs) and ``step_jac`` of every model
+   (cartpole friction, the acrobot, planar push, the hopper model, the
+   rocket's projected step) at three states each (numpy seed 90), float64
+   on the card against the CPU: y within 1e-12, the Jacobians within
+   1e-10.
 
 The kernels' designs are in their wrappers' docstrings
 (``ops/kernels/*.py``). K1 (cartpole, the rocket's projection, the
@@ -281,7 +298,10 @@ through the kernel the width picks (``kernel``), each kernel's forced
 times beside them, with their launches from phase 15, in all and by
 kernel; ``batched_solve_n10_k1`` and ``batched_solve_n20_k1``, whose
 Newton solves now run inside K1, keep their entries with their launches
-on phases 15 and 13, 0); ``fused_ip_rocket_projection`` and
+on phases 15 and 13, 0); ``fused_ip``, ``fused_ip_tile``,
+``batched_solve`` and ``batched_solve_tile`` carry the scalar path's
+launches (phase 18) as ``launches_scalar``;
+``fused_ip_rocket_projection`` and
 ``fused_ip_hopper`` are K1's per-thread kernels on those functors, timed
 at the sweeps' widths (phases 16, 17: 15,360 cold projections, 5,120
 warm hopper solves), ``fused_ip_rocket_projection_tile`` and
@@ -296,6 +316,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import sys
 import time
 
@@ -2019,6 +2040,191 @@ def phase_k1_hopper(device) -> dict:
                            nq=4, f32_tol=2e-4)
 
 
+def _scalar_states(name: str, rng, n: int):
+    """``n`` states and controls of model ``name`` about its example's
+    nominal state (numpy ``rng``)."""
+    if name == "cartpole":
+        q1 = 0.3 * rng.standard_normal((n, 2))
+        return (np.concatenate([q1 - 0.02 * rng.standard_normal((n, 2)),
+                                q1], 1), 0.8 * rng.standard_normal((n, 1)))
+    if name == "acrobot":
+        q1 = np.stack([rng.standard_normal(n), rng.uniform(1.3, 1.7, n)], 1)
+        return (np.concatenate([q1 - 0.05 * rng.standard_normal((n, 2)),
+                                q1], 1), 3.0 * rng.standard_normal((n, 1)))
+    if name == "planar_push":
+        from optimization_dynamics_tpu_torch.models import planar_push as pp
+        free = np.array([1, 1, 1, 0, 1])
+        q1 = (np.array([0.0, 0.0, 0.0, -pp.R_DIM - 1e-8, 0.0])
+              + 0.01 * rng.standard_normal((n, 5)) * free)
+        return (np.concatenate([q1 - 0.005 * rng.standard_normal((n, 5))
+                                * free, q1], 1),
+                np.abs(rng.standard_normal((n, 2))) * [1.0, 0.2])
+    if name == "hopper":
+        from optimization_dynamics_tpu_torch.models import hopper as hp
+        p = hp.HopperParams()
+        q1 = (np.array([0.0, 0.5 + p.foot_radius, 0.0, 0.5])
+              + 0.02 * rng.standard_normal((n, 4)))
+        return (np.concatenate([q1 - 0.01 * rng.standard_normal((n, 4)),
+                                q1], 1),
+                [0.0, p.gravity * p.mass_body * 0.025]
+                + 0.1 * rng.standard_normal((n, 2)))
+    x1 = np.zeros(12)
+    x1[0:3] = [2.5, 2.5, 10.0]
+    x1[8] = -1.0
+    return (x1 + 0.1 * rng.standard_normal((n, 12)),
+            np.array([3.0, 3.0, 9.0]) * rng.standard_normal((n, 3)))
+
+
+def _scalar_step_jacs(device) -> dict:
+    """``step_jac`` of each model's scalar dynamics, float64 on the card
+    against the CPU: max|dy| and the Jacobians' max|d|."""
+    import torch
+
+    from optimization_dynamics_tpu_torch.dynamics import (
+        make_implicit_dynamics)
+    from optimization_dynamics_tpu_torch.models import acrobot as ac
+    from optimization_dynamics_tpu_torch.models import cartpole as cp
+    from optimization_dynamics_tpu_torch.models import hopper as hp
+    from optimization_dynamics_tpu_torch.models import planar_push as pp
+    from optimization_dynamics_tpu_torch.models import rocket as ro
+
+    f64 = torch.float64
+
+    def implicit(model, aux, k_eval, k_grad):
+        def make(dev):
+            dyn = make_implicit_dynamics(model, dev, f64, r_tol=1e-8,
+                                         kappa_eval_tol=k_eval,
+                                         kappa_grad_tol=k_grad)
+            a = aux(dev)
+            return lambda x, u: dyn.step_jac(x, u, a)
+        return make
+
+    def rocket(dev):
+        return ro.make_rocket_dynamics(device=dev, dtype=f64).step_jac
+
+    makers = {
+        "cartpole": implicit(cp.friction_model(), lambda d: cp.CartpoleAux(
+            h=0.05, friction=torch.tensor([0.35, 0.35], dtype=f64,
+                                          device=d)), 1e-4, 1e-3),
+        "acrobot": implicit(ac.impact_model(), lambda d: ac.AcrobotAux(
+            h=torch.tensor(0.05, dtype=f64, device=d)), 1e-4, 1e-3),
+        "planar_push": implicit(pp.model(), lambda d: pp.PlanarPushAux(
+            h=0.1), 1e-4, 1e-2),
+        "hopper": implicit(hp.model(), lambda d: hp.HopperAux(
+            h=torch.tensor(0.05, dtype=f64, device=d)), 1e-4, 1e-3),
+        "rocket": rocket}
+    out = {}
+    for name, make in makers.items():
+        xs, us = _scalar_states(name, np.random.default_rng(90), 3)
+        card, cpu = make(device), make(torch.device("cpu"))
+        dy = djac = 0.0
+        for x, u in zip(xs, us):
+            args = [torch.tensor(a, dtype=f64) for a in (x, u)]
+            got = card(*(a.to(device) for a in args))
+            ref = cpu(*args)
+            _check(all(bool(torch.isfinite(g).all()) for g in got),
+                   "step_jac %s: not finite on the card" % name)
+            dy = max(dy, float((got[0].cpu() - ref[0]).abs().max()))
+            djac = max(djac, max(float((g.cpu() - r).abs().max())
+                                 for g, r in zip(got[1:], ref[1:])))
+        _check(dy <= 1e-12 and djac <= 1e-10,
+               "step_jac %s f64 card vs CPU: max|dy| %.3e, max|dJ| %.3e"
+               % (name, dy, djac))
+        out[name] = dict(max_dy=dy, max_djac=djac)
+    return out
+
+
+def phase_scalar(device) -> dict:
+    """The scalar path on the card: the cartpole friction swing-up by the
+    scalar ``solve`` to a golden, K1's and K2's launches by width, then
+    ``simulate`` and ``step_jac`` card against CPU; see the module
+    docstring."""
+    import torch
+
+    from optimization_dynamics_tpu_torch.dynamics import (
+        make_implicit_dynamics, simulate)
+    from optimization_dynamics_tpu_torch.examples import cartpole as ex
+    from optimization_dynamics_tpu_torch.models import acrobot as ac
+    from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
+        batched_solve)
+    from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import fused_ip
+    from optimization_dynamics_tpu_torch.utils.measure import scalar_solve
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "goldens.json")) as f:
+        goldens = json.load(f)["cartpole_friction_objective"]
+    prob, x0, us0, opts = ex.build_problem("friction", device=device,
+                                           dtype=torch.float64)
+    _zero_counts(fused_ip)
+    _zero_counts(batched_solve)
+    res, wall, by_width = scalar_solve(prob, x0, us0, opts)
+    launches = {"fused_ip": fused_ip.launches - fused_ip.tile_launches,
+                "fused_ip_tile": fused_ip.tile_launches,
+                **_split_counts("batched_solve", batched_solve)}
+    obj = float(res.objective)
+    xT = np.array([0.0, np.pi, 0.0, np.pi])
+    err = float(np.abs(res.xs[-1].cpu().numpy() - xT).max())
+    _check(bool(res.converged), "scalar cartpole: not converged")
+    _check(float(res.constraint_violation) < opts.con_tol,
+           "scalar cartpole: violation %.3e" % float(res.constraint_violation))
+    _check(err <= 1e-2, "scalar cartpole: final state off by %.3e" % err)
+    _check(any(abs(obj - g) <= 0.05 * g for g in goldens),
+           "scalar cartpole: objective %.6f not within 5%% of %s"
+           % (obj, goldens))
+    k1 = fused_ip.widths
+    _check(k1["tile", 1] > 0 and k1["tile", ex.T - 1] > 0,
+           "scalar cartpole: K1 tile not launched at widths 1 and %d: %s"
+           % (ex.T - 1, dict(k1)))
+    _check(batched_solve.shapes[10, 8] > 0,
+           "scalar cartpole: K2 (10, 8) not launched")
+    out = dict(wall_s=wall, converged=True, objective=obj,
+               goldens=goldens, final_state_err=err,
+               iterations=int(res.iterations),
+               al_iterations=int(res.al_iterations),
+               constraint_violation=float(res.constraint_violation),
+               launches=launches, launches_by_width=by_width)
+
+    # the derivative sweep at the solution, the solve's launches at width
+    # T-1 (K1's tile, a ragged last block, and K2 (10, 8)), card against
+    # a CPU copy of the problem
+    prob_h = ex.build_problem("friction", device="cpu",
+                              dtype=torch.float64)[0]
+    ts = torch.arange(ex.T - 1)
+    got = prob.dynamics_jac_batched(ts.to(device), res.xs[:-1], res.us)
+    ref = prob_h.dynamics_jac_batched(ts, res.xs[:-1].cpu(), res.us.cpu())
+    dy = float((got[0].cpu() - ref[0]).abs().max())
+    djac = max(float((g.cpu() - r).abs().max())
+               for g, r in zip(got[1:], ref[1:]))
+    _check(dy <= 1e-12 and djac <= 1e-10,
+           "sweep at width %d f64 card vs CPU: max|dy| %.3e, max|dJ| %.3e"
+           % (ex.T - 1, dy, djac))
+    out["sweep_f64_vs_cpu"] = dict(width=ex.T - 1, max_dy=dy, max_djac=djac)
+
+    # simulate: tests/test_simulate.py's acrobot case, card against CPU
+    sims = []
+    for dev in (device, torch.device("cpu")):
+        dyn = make_implicit_dynamics(ac.impact_model(), dev, torch.float64)
+        aux = ac.AcrobotAux(h=torch.tensor(0.05, dtype=torch.float64,
+                                           device=dev))
+        xs, sols = simulate(dyn, torch.tensor([0.0, 1.4, 0.0, 1.45],
+                                              dtype=torch.float64,
+                                              device=dev),
+                            torch.full((12, 1), 3.0, dtype=torch.float64,
+                                       device=dev), aux)
+        sims.append((xs.cpu(), sols.z.cpu(), sols.converged.cpu()))
+    (xs_c, z_c, ok_c), (xs_h, z_h, _) = sims
+    dx = float((xs_c - xs_h).abs().max())
+    dz = float((z_c - z_h).abs().max())
+    _check(bool(ok_c.all()) and float(z_c[:, 2:4].max()) > 1e-3,
+           "simulate: not converged, or the limit never engaged")
+    _check(dx <= 1e-12 and dz <= 1e-12,
+           "simulate f64 card vs CPU: max|dx| %.3e, max|dz| %.3e"
+           % (dx, dz))
+    out["simulate_f64_vs_cpu"] = dict(max_dx=dx, max_dz=dz)
+    out["step_jac_f64_vs_cpu"] = _scalar_step_jacs(device)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2089,6 +2295,8 @@ def main() -> int:
     kh = phase_k1_hopper(device)
     print("# phase 17 K1 fused_ip hopper vs plain: %s" % json.dumps(kh),
           flush=True)
+    sc = phase_scalar(device)
+    print("# phase 18 scalar path: %s" % json.dumps(sc), flush=True)
 
     src = "optimization_dynamics_tpu_torch/ops/kernels/csrc/"
     tpu = "optimization_dynamics_tpu/ops/pallas/"
@@ -2311,6 +2519,9 @@ def main() -> int:
                 **{"ms_" + other: res["f32"][other][route]["ms"],
                    "ms_device_" + other:
                        res["f32"][other][route]["ms_device"]}))
+    for k in kernels:
+        if k["name"] in sc["launches"]:
+            k["launches_scalar"] = sc["launches"][k["name"]]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

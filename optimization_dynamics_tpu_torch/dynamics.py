@@ -1,9 +1,9 @@
-"""Differentiable implicit (optimization-based) dynamics, lane-batched.
+"""Differentiable implicit (optimization-based) dynamics.
 
-Port of the lane-batched members of ``optimization_dynamics_tpu/
-dynamics.py``: a discrete step ``x = [q1; q2] --IP solve--> y = [q2; q3]``
-where ``q3`` solves the model's contact/friction residual, with two
-solver configurations (the smoothed-gradient design):
+Port of ``optimization_dynamics_tpu/dynamics.py``: a discrete step
+``x = [q1; q2] --IP solve--> y = [q2; q3]`` where ``q3`` solves the
+model's contact/friction residual, with two solver configurations (the
+smoothed-gradient design):
 
   * ``eval`` — tight relaxation (``kappa_eval_tol``), used for rollouts;
   * ``grad`` — loose relaxation (``kappa_grad_tol``), whose IFT
@@ -12,9 +12,12 @@ solver configurations (the smoothed-gradient design):
 A model with a CUDA device functor (``ImplicitModel.kernel``) runs both
 solvers through the fused IP kernel (K1), whose wrapper takes its plain
 version for CPU tensors; a model without one runs ``make_solver_batched``.
-The IFT solve always goes through the batched QR (K2). The scalar ``step``,
-``step_jac``, ``step_carry``, ``step_diff`` and ``simulate`` are not
-ported yet.
+The IFT solve always goes through the batched QR (K2). The scalar members
+(``step``, ``step_info``, ``step_jac``, ``step_carry``, ``step_diff``)
+are the lane-batched ones on a batch of one, so a scalar step on a CUDA
+tensor runs the same kernels at width 1. ``step_diff`` differentiates
+through the solve by the IFT: its backward pass is ``fx.T g``, ``fu.T g``
+from ``step_jac``.
 """
 
 from __future__ import annotations
@@ -30,11 +33,13 @@ from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import (
 )
 from optimization_dynamics_tpu_torch.solver.interior_point import (
     IPOptions,
+    IPSolution,
     make_sensitivity_batched,
     make_solver_batched,
 )
 
-__all__ = ["ImplicitModel", "ImplicitDynamics", "make_implicit_dynamics"]
+__all__ = ["ImplicitModel", "ImplicitDynamics", "make_implicit_dynamics",
+           "simulate", "state_to_configuration"]
 
 
 class ImplicitModel(NamedTuple):
@@ -67,16 +72,24 @@ class ImplicitModel(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class ImplicitDynamics:
-    """Lane-batched eval/grad steppers for one model."""
+    """Eval/grad steppers for one model: ``step(x, u, aux) -> y``;
+    ``step_info`` also returns the ``IPSolution``; ``step_jac(x, u, aux)
+    -> (y, fx, fu)`` from one kappa_grad solve; the lane-batched members
+    take a batch first."""
 
     model: ImplicitModel
+    step: Callable
+    step_info: Callable
+    step_jac: Callable
     step_batched: Callable      # (xs, us, aux) -> ys (lane-batched eval)
     step_jac_batched: Callable  # (xs, us, aux) -> (ys, fxs, fus)
     # warm-started variants: z0s are solver variables from a previous
     # solve of the same timestep
     step_batched_ws: Callable      # (xs, us, aux, z0s) -> (ys, zs)
     step_jac_batched_ws: Callable  # (xs, us, aux, z0s) -> (ys,fxs,fus,zs)
-    carry_init: Callable  # (x0s,) -> initial warm-start variables
+    step_diff: Callable   # step with an IFT backward pass for autograd
+    step_carry: Callable  # (z_prev, x, u, aux) -> (y, z): warm-started
+    carry_init: Callable  # (x0 or x0s,) -> initial warm-start variables
 
 
 def make_implicit_dynamics(
@@ -164,11 +177,78 @@ def make_implicit_dynamics(
     def carry_init(x0s):
         return model.init_z(x0s[..., nq:2 * nq])
 
+    def step_info(x, u, aux) -> Tuple[torch.Tensor, IPSolution]:
+        q1, theta = _thetas_of(x[None], u[None], aux)
+        sol = eval_solve_batched(model.init_z(q1), theta)
+        sol = IPSolution(*(a[0] for a in sol))
+        return torch.cat([q1[0], sol.z[q_sel]]), sol
+
+    def step(x, u, aux):
+        return step_info(x, u, aux)[0]
+
+    def step_jac(x, u, aux):
+        """One relaxed solve -> (y, dy/dx, dy/du)."""
+        return tuple(a[0] for a in step_jac_batched(x[None], u[None], aux))
+
+    def step_carry(z_prev, x, u, aux):
+        """Step warm-started from solver variables of an earlier solve
+        -> (y, z)."""
+        y, z = step_batched_ws(x[None], u[None], aux, z_prev[None])
+        return y[0], z[0]
+
+    class StepDiff(torch.autograd.Function):
+        """``step`` whose vector-Jacobian product is the IFT's at the
+        relaxed solution: one kappa_grad solve per cotangent instead of
+        differentiating through the Newton iterations."""
+
+        @staticmethod
+        def forward(x, u, aux):
+            return step(x, u, aux)
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            x, u, aux = inputs
+            ctx.save_for_backward(x, u)
+            ctx.aux = aux
+
+        @staticmethod
+        def backward(ctx, g):
+            x, u = ctx.saved_tensors
+            _, fx, fu = step_jac(x, u, ctx.aux)
+            return fx.T @ g, fu.T @ g, None
+
     return ImplicitDynamics(
         model=model,
+        step=step,
+        step_info=step_info,
+        step_jac=step_jac,
         step_batched=step_batched,
         step_jac_batched=step_jac_batched,
         step_batched_ws=step_batched_ws,
         step_jac_batched_ws=step_jac_batched_ws,
+        step_diff=StepDiff.apply,
+        step_carry=step_carry,
         carry_init=carry_init,
     )
+
+
+def simulate(dyn: ImplicitDynamics, x0: torch.Tensor, us: torch.Tensor,
+             aux) -> Tuple[torch.Tensor, IPSolution]:
+    """Open-loop simulation collecting the solver variables: the
+    ``(N+1, 2 nq)`` states from ``x0`` under ``us (N, nu)`` and the
+    per-step ``IPSolution`` stacked along the first dimension (``z`` holds
+    each step's configuration, impulses and slacks)."""
+    x = x0
+    xs, sols = [x0], []
+    for u in us:
+        x, sol = dyn.step_info(x, u, aux)
+        xs.append(x)
+        sols.append(sol)
+    return torch.stack(xs), IPSolution(*(torch.stack(f)
+                                         for f in zip(*sols)))
+
+
+def state_to_configuration(xs: torch.Tensor) -> torch.Tensor:
+    """Unstack ``(T, 2 nq)`` states into the ``(T+1, nq)`` configurations."""
+    nq = xs.shape[-1] // 2
+    return torch.cat([xs[:1, :nq], xs[:, nq:]], dim=0)

@@ -19,9 +19,15 @@ versions run in float64. Run it on the card with
 ``--device`` defaults to ``cuda`` and the script stops if there is no
 CUDA device; ``--device cpu`` runs the plain versions. The executor
 settings are the reference bench's (per-AL-round inner budgets, the
-straggler policy). Without ``--deploy`` the script solves the single
-swing-up from rest (``build_problem``, ``--mode impact|nominal``) with
-the same executor at batch 1.
+straggler policy).
+
+Without ``--deploy`` the script runs the reference's ``main``: the
+swing-up from rest (``build_problem``, ``--mode impact|nominal``) solved
+by the scalar AL-iLQR ``solver.ilqr.solve`` in float64, its line-search
+rollouts warm-started step by step from the accepted trajectory's solver
+variables. On the card each rollout step runs K1a at width 1 and each
+derivative sweep K1a at width T-1 = 100 with its IFT solves in K2 at (6,
+6) (the nominal model, without a functor, K2 at (2, 1) and (2, 6)).
 """
 
 from __future__ import annotations
@@ -39,11 +45,13 @@ from optimization_dynamics_tpu_torch.models import acrobot
 from optimization_dynamics_tpu_torch.solver.ilqr import (
     ILQROptions,
     ILQRProblem,
+    solve,
 )
 from optimization_dynamics_tpu_torch.solver.ilqr_segmented import (
     make_segmented_solver,
 )
 from optimization_dynamics_tpu_torch.solver.interior_point import IPOptions
+from optimization_dynamics_tpu_torch.utils.measure import scalar_solve
 
 H = 0.05
 T = 101
@@ -65,7 +73,9 @@ DEPLOY_IP_CPU = dict(r_tol=1.0e-8, kappa_tol=1.0e-3, max_iter=40, max_ls=8)
 def build_problem(mode: str = "impact", kappa_grad: float = 1.0e-3,
                   device="cuda", dtype=torch.float64, seed: int = 1):
     """Returns (prob, x0, us_init, opts). ``mode``: "impact" | "nominal".
-    The problem carries the lane-batched dynamics (cold solves)."""
+    The problem carries the scalar dynamics for ``solver.ilqr.solve``
+    (steps warm-started from the accepted trajectory's solver variables
+    at the same timestep) and the lane-batched ones (cold solves)."""
     device = torch.device(device)
     aux = acrobot.AcrobotAux(h=H)
     if mode == "impact":
@@ -93,6 +103,10 @@ def build_problem(mode: str = "impact", kappa_grad: float = 1.0e-3,
         stage_cost=stage_cost,
         terminal_cost=velocity_cost,
         terminal_con=lambda x: x - xT,
+        dynamics=lambda t, x, u: dyn.step(x, u, aux),
+        dynamics_jac=lambda t, x, u: dyn.step_jac(x, u, aux),
+        dynamics_ws=lambda t, x, u, z: dyn.step_carry(z, x, u, aux),
+        ws_init=lambda t, x, u: dyn.carry_init(x),
         dynamics_batched=lambda t, xs, us: dyn.step_batched(xs, us, aux),
         dynamics_jac_batched=lambda ts, xs, us: dyn.step_jac_batched(
             xs, us, aux),
@@ -194,20 +208,55 @@ def envelope_batch(B: int, seed: int, device, dtype):
         q0, q1, u, acrobot.AcrobotAux(h=H))
 
 
+def run(mode: str = "impact", device="cuda", dtype=torch.float64):
+    """The reference's ``run``: ``build_problem`` solved by the scalar
+    ``solve``. Returns ``(prob, result)``."""
+    prob, x0, us_init, opts = build_problem(mode, device=device, dtype=dtype)
+    return prob, solve(prob, x0, us_init, opts)
+
+
+def main_scalar(mode, device, dtype=torch.float64, us_init=None):
+    """The reference's ``main``: the swing-up by the scalar ``solve``,
+    printed with its wall and its K1 and K2 launches. ``us_init``: the
+    initial controls (T-1, 1) in place of ``build_problem``'s."""
+    prob, x0, us0, opts = build_problem(mode, device=device, dtype=dtype)
+    if us_init is not None:
+        us0 = torch.as_tensor(us_init, dtype=dtype, device=device)
+    res, wall, launches = scalar_solve(prob, x0, us0, opts)
+    xT = np.array([math.pi, 0.0, math.pi, 0.0])
+    print("iterations:", int(res.iterations),
+          "al_iterations:", int(res.al_iterations))
+    print("objective:", float(res.objective))
+    print("AL objective:", float(res.al_objective))
+    print("terminal violation:",
+          float(np.max(np.abs(res.xs[-1].cpu().numpy() - xT))))
+    print("converged:", bool(res.converged))
+    print("max |elbow angle|: %.9f (limit pi/2 = %.9f)"
+          % (float(res.xs[:, 3].abs().max()), 0.5 * math.pi))
+    print("device=%s dtype=%s mode=%s wall %.3f s launches %s"
+          % (device, dtype, mode, wall, launches))
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--deploy", action="store_true",
-                    help="run the lane-batched deploy solve")
+                    help="run the lane-batched deploy solve (default: the "
+                         "scalar solve of the reference's main)")
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--mode", choices=("impact", "nominal"),
                     default="impact",
-                    help="without --deploy: the model of the single solve")
+                    help="without --deploy: the model of the scalar solve")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain versions)")
     ap.add_argument("--dtype", choices=("f32", "f64"), default=None,
                     help="default: f32 on a CUDA device with --deploy, "
                          "else f64")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--us-init", default=None,
+                    help="without --deploy: a .npy file of initial "
+                         "controls (T-1, 1), for example the reference "
+                         "example's")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -216,20 +265,16 @@ def main(argv=None):
     dtype = {None: None, "f32": torch.float32,
              "f64": torch.float64}[args.dtype]
 
-    if args.deploy:
-        prob, x0, us0, opts = build_deploy_problem(device, dtype=dtype)
-        B = args.batch
-        x0s = deploy_x0s(x0, B, args.seed)
-        solve = make_segmented_solver(
-            prob, opts, B, x0.dtype, device,
-            max_iter_schedule=DEPLOY_MAX_ITER_SCHEDULE,
-            al_stall_rounds=DEPLOY_AL_STALL_ROUNDS)
-    else:
-        prob, x0, us0, opts = build_problem(args.mode, device=device,
-                                            dtype=dtype or torch.float64)
-        B = 1
-        x0s = x0[None]
-        solve = make_segmented_solver(prob, opts, B, x0.dtype, device)
+    if not args.deploy:
+        return main_scalar(args.mode, device, dtype or torch.float64,
+                           args.us_init and np.load(args.us_init))
+    prob, x0, us0, opts = build_deploy_problem(device, dtype=dtype)
+    B = args.batch
+    x0s = deploy_x0s(x0, B, args.seed)
+    solve_b = make_segmented_solver(
+        prob, opts, B, x0.dtype, device,
+        max_iter_schedule=DEPLOY_MAX_ITER_SCHEDULE,
+        al_stall_rounds=DEPLOY_AL_STALL_ROUNDS)
     if device.type == "cuda":
         from optimization_dynamics_tpu_torch.ops.kernels._build import (
             load_library,
@@ -237,7 +282,7 @@ def main(argv=None):
         load_library()          # build the kernels before the clock
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = solve(x0s, us0)
+    res = solve_b(x0s, us0)
     if device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -246,8 +291,7 @@ def main(argv=None):
     n_conv = int(conv.sum())
     mean_obj = float(obj[conv].mean()) if n_conv else float("nan")
     med_obj = float(np.median(obj[conv])) if n_conv else float("nan")
-    print("device=%s dtype=%s batch=%d mode=%s"
-          % (device, x0.dtype, B, "impact" if args.deploy else args.mode))
+    print("device=%s dtype=%s batch=%d mode=impact" % (device, x0.dtype, B))
     print("converged %d/%d (%.4f)" % (n_conv, B, n_conv / B))
     print("mean converged objective %.6f, median %.6f" % (mean_obj, med_obj))
     print("wall %.3f s, %.4f converged solves/s" % (wall, n_conv / wall))
@@ -256,7 +300,7 @@ def main(argv=None):
              int(res.al_iterations.max())))
     print("max |elbow angle| %.6f (limit pi/2 = %.6f)"
           % (float(res.xs[..., 3].abs().max()), 0.5 * math.pi))
-    print("stats %s" % dict(solve.stats))
+    print("stats %s" % dict(solve_b.stats))
     return res
 
 

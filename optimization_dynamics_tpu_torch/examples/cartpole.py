@@ -15,9 +15,14 @@ it runs the kernel's plain version in float64. Run it on the card with
 ``--fused-rollout`` runs every rollout as one K4 launch and
 ``--riccati-kernel`` the backward pass as one K3 launch; both are off by
 default. ``--device`` defaults to ``cuda`` and the script stops if there
-is no CUDA device; ``--device cpu`` runs the plain versions. Without
-``--deploy`` the script solves the single friction swing-up from rest
-(``build_problem``) with the same executor at batch 1.
+is no CUDA device; ``--device cpu`` runs the plain versions.
+
+Without ``--deploy`` the script runs the reference's ``main``: the
+frictionless and the friction swing-up from rest (``build_problem``),
+each solved by the scalar AL-iLQR ``solver.ilqr.solve`` in float64. On
+the card each rollout step runs K1 at width 1 (the frictionless model,
+which has no device functor, K2 at (2, 1)) and each derivative sweep K1
+at width T-1 = 50 with its IFT solves in K2 at (10, 8).
 """
 
 from __future__ import annotations
@@ -38,11 +43,13 @@ from optimization_dynamics_tpu_torch.ops.kernels.fused_rollout import (
 from optimization_dynamics_tpu_torch.solver.ilqr import (
     ILQROptions,
     ILQRProblem,
+    solve,
 )
 from optimization_dynamics_tpu_torch.solver.interior_point import IPOptions
 from optimization_dynamics_tpu_torch.solver.ilqr_segmented import (
     make_segmented_solver,
 )
+from optimization_dynamics_tpu_torch.utils.measure import scalar_solve
 
 H = 0.05
 T = 51
@@ -63,8 +70,10 @@ DEPLOY_IP_CPU = dict(r_tol=1.0e-8, kappa_tol=1.0e-3, max_iter=40, max_ls=8)
 def build_problem(mode: str = "friction", friction=(0.35, 0.35),
                   device="cuda", dtype=torch.float64):
     """Returns (prob, x0, us_init, opts). ``mode``: "friction" |
-    "frictionless". The problem carries the lane-batched dynamics (cold
-    solves)."""
+    "frictionless". The problem carries the scalar dynamics for
+    ``solver.ilqr.solve`` (its open-loop rollout threads each step's
+    solver variables into the next, its line-search rollouts start cold)
+    and the lane-batched ones (cold solves)."""
     device = torch.device(device)
     if mode == "friction":
         model = cartpole.friction_model()
@@ -93,6 +102,10 @@ def build_problem(mode: str = "friction", friction=(0.35, 0.35),
         stage_cost=stage_cost,
         terminal_cost=terminal_cost,
         terminal_con=lambda x: x - xT,
+        dynamics=lambda t, x, u: dyn.step(x, u, aux),
+        dynamics_jac=lambda t, x, u: dyn.step_jac(x, u, aux),
+        dynamics_carry=lambda t, x, u, z: dyn.step_carry(z, x, u, aux),
+        carry_init=dyn.carry_init,
         dynamics_batched=lambda t, xs, us: dyn.step_batched(xs, us, aux),
         dynamics_jac_batched=lambda ts, xs, us: dyn.step_jac_batched(
             xs, us, aux),
@@ -174,10 +187,39 @@ def deploy_x0s(x0: torch.Tensor, B: int, seed: int = 0) -> torch.Tensor:
                                              device=x0.device)
 
 
+def run(mode: str = "friction", friction=(0.35, 0.35), device="cuda",
+        dtype=torch.float64):
+    """The reference's ``run``: ``build_problem`` solved by the scalar
+    ``solve``. Returns ``(prob, result)``."""
+    prob, x0, us_init, opts = build_problem(mode, friction, device, dtype)
+    return prob, solve(prob, x0, us_init, opts)
+
+
+def main_scalar(device, dtype=torch.float64):
+    """The reference's ``main``: both swing-ups by the scalar ``solve``,
+    each printed with its wall and its K1 and K2 launches. Returns the
+    friction swing-up's result."""
+    xT = np.array([0.0, math.pi, 0.0, math.pi])
+    for mode in ("frictionless", "friction"):
+        prob, x0, us0, opts = build_problem(mode, device=device,
+                                            dtype=dtype)
+        res, wall, launches = scalar_solve(prob, x0, us0, opts)
+        print(f"[{mode}] converged: {bool(res.converged)}"
+              f" obj: {float(res.objective):.4f}"
+              f" iters: {int(res.iterations)}"
+              f" al: {int(res.al_iterations)}"
+              f" |xT - goal|inf: "
+              f"{float(np.max(np.abs(res.xs[-1].cpu().numpy() - xT))):.2e}")
+        print("[%s] device=%s dtype=%s wall %.3f s launches %s"
+              % (mode, device, dtype, wall, launches))
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--deploy", action="store_true",
-                    help="run the lane-batched deploy solve")
+                    help="run the lane-batched deploy solve (default: the "
+                         "scalar solves of the reference's main)")
     ap.add_argument("--batch", type=int, default=512)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain versions)")
@@ -199,22 +241,17 @@ def main(argv=None):
     dtype = {None: None, "f32": torch.float32,
              "f64": torch.float64}[args.dtype]
 
-    if args.deploy:
-        prob, x0, us0, opts = build_deploy_problem(
-            device, dtype=dtype, fused_rollout=args.fused_rollout)
-        opts = dataclasses.replace(opts, riccati_kernel=args.riccati_kernel)
-        B = args.batch
-        x0s = deploy_x0s(x0, B, args.seed)
-        solve = make_segmented_solver(
-            prob, opts, B, x0.dtype, device,
-            max_iter_schedule=DEPLOY_MAX_ITER_SCHEDULE,
-            al_stall_rounds=DEPLOY_AL_STALL_ROUNDS)
-    else:
-        prob, x0, us0, opts = build_problem("friction", device=device,
-                                            dtype=dtype or torch.float64)
-        B = 1
-        x0s = x0[None]
-        solve = make_segmented_solver(prob, opts, B, x0.dtype, device)
+    if not args.deploy:
+        return main_scalar(device, dtype or torch.float64)
+    prob, x0, us0, opts = build_deploy_problem(
+        device, dtype=dtype, fused_rollout=args.fused_rollout)
+    opts = dataclasses.replace(opts, riccati_kernel=args.riccati_kernel)
+    B = args.batch
+    x0s = deploy_x0s(x0, B, args.seed)
+    solve_b = make_segmented_solver(
+        prob, opts, B, x0.dtype, device,
+        max_iter_schedule=DEPLOY_MAX_ITER_SCHEDULE,
+        al_stall_rounds=DEPLOY_AL_STALL_ROUNDS)
     if device.type == "cuda":
         from optimization_dynamics_tpu_torch.ops.kernels._build import (
             load_library,
@@ -222,7 +259,7 @@ def main(argv=None):
         load_library()          # build the kernels before the clock
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = solve(x0s, us0)
+    res = solve_b(x0s, us0)
     if device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -239,7 +276,7 @@ def main(argv=None):
     print("mean inner iterations %.2f, AL rounds %d"
           % (float(res.iterations.float().mean()),
              int(res.al_iterations[0])))
-    print("stats %s" % dict(solve.stats))
+    print("stats %s" % dict(solve_b.stats))
     return res
 
 

@@ -28,9 +28,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import os
 import subprocess
-import tempfile
 import time
 
 import numpy as np
@@ -50,6 +48,10 @@ from optimization_dynamics_tpu_torch.ops.kernels.riccati import (
 )
 from optimization_dynamics_tpu_torch.solver.ilqr_segmented import (
     make_segmented_solver,
+)
+from optimization_dynamics_tpu_torch.utils.measure import (
+    busy_seconds,
+    kernel_trace,
 )
 
 # --order token -> (K4 rollouts, K3 backward pass)
@@ -99,38 +101,12 @@ def _timed(solve, x0s, us0):
                                            for k, c in COUNTERS.items()}
 
 
-def _busy_seconds(intervals) -> float:
-    """Length of the union of (start, end) intervals."""
-    busy, cur = 0.0, None
-    for a, b in sorted(intervals):
-        if cur is None or a > cur[1]:
-            if cur is not None:
-                busy += cur[1] - cur[0]
-            cur = [a, b]
-        else:
-            cur[1] = max(cur[1], b)
-    if cur is not None:
-        busy += cur[1] - cur[0]
-    return busy
-
-
 def _profile(version: str, B: int, dtype) -> dict:
-    from torch.profiler import ProfilerActivity, profile
-
     solve, x0s, us0 = _solver(version, B, dtype, [5], al_rounds=1)
     _timed(solve, x0s, us0)
     res, wall, launches = _timed(solve, x0s, us0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, prof_wall, _ = _timed(solve, x0s, us0)
-    fd, path = tempfile.mkstemp(suffix=".json")
-    os.close(fd)
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    os.unlink(path)
-    kern = [e for e in events if e.get("cat") == "kernel"]
-    busy = _busy_seconds((e["ts"], e["ts"] + e["dur"]) for e in kern) / 1e6
+    (_, prof_wall, _), kern = kernel_trace(lambda: _timed(solve, x0s, us0))
+    busy = busy_seconds(kern)
     by_name = {}
     for e in kern:
         name = next((v for k, v in TRACE_NAMES.items() if k in e["name"]),

@@ -42,8 +42,14 @@ CUDA device; ``--device cpu`` runs the plain versions. The executor
 settings are the reference bench's hopper cell (per-AL-round inner
 budgets, two stalled AL rounds). The scenarios are ``x0 + 0.005 N(0, 1)``
 from a numpy seed (the reference bench draws them from ``jax.random``).
-Without ``--deploy`` the script solves the gait from the reference's
-initial guess (``build_problem``) with the same executor at batch 1.
+
+Without ``--deploy`` the script runs the reference's ``main``: the gait
+(``--gait``) from the reference's initial guess (``build_problem``)
+solved by the scalar AL-iLQR ``solver.ilqr.solve`` in float64, whose
+scalar dynamics are the unified lane-batched member on a batch of one.
+On the card each rollout step runs K1 (``hopper``) at width 1 and each
+derivative sweep K1 at width T-1 = 20 with its IFT solves in K2 at (20,
+13).
 """
 
 from __future__ import annotations
@@ -60,11 +66,13 @@ from optimization_dynamics_tpu_torch.models import hopper as hp
 from optimization_dynamics_tpu_torch.solver.ilqr import (
     ILQROptions,
     ILQRProblem,
+    solve,
 )
 from optimization_dynamics_tpu_torch.solver.ilqr_segmented import (
     make_segmented_solver,
 )
 from optimization_dynamics_tpu_torch.solver.interior_point import IPOptions
+from optimization_dynamics_tpu_torch.utils.measure import scalar_solve
 
 H = 0.05
 T = 21
@@ -132,7 +140,8 @@ def _assemble_jac(first, ys8, fx8, fu8, xs, us):
 
 def _wire(prob: ILQRProblem, dyn, aux, warm: bool) -> ILQRProblem:
     """The problem with the unified first-step dynamics over ``dyn``:
-    cold members, and with ``warm`` the warm-start members and the cold
+    cold members (the scalar ones are the lane-batched ones on a batch of
+    one), and with ``warm`` the warm-start members and the cold
     line-search policy (``ws_linesearch=False``)."""
     def dynamics_batched(t, xs, us):
         x8, first = _x8_eff(t, xs, us)
@@ -144,8 +153,16 @@ def _wire(prob: ILQRProblem, dyn, aux, warm: bool) -> ILQRProblem:
         return _assemble_jac(first, *dyn.step_jac_batched(
             x8, us[:, 0:2], aux), xs, us)
 
-    prob = prob._replace(dynamics_batched=dynamics_batched,
-                         dynamics_jac_batched=dynamics_jac_batched)
+    def dynamics_jac(t, x, u):
+        ts = torch.as_tensor(t, device=x.device).reshape(1)
+        return tuple(a[0] for a in dynamics_jac_batched(ts, x[None],
+                                                        u[None]))
+
+    prob = prob._replace(
+        dynamics=lambda t, x, u: dynamics_batched(t, x[None], u[None])[0],
+        dynamics_jac=dynamics_jac,
+        dynamics_batched=dynamics_batched,
+        dynamics_jac_batched=dynamics_jac_batched)
     if not warm:
         return prob
 
@@ -180,8 +197,8 @@ def control_mask(device) -> torch.Tensor:
 
 def build_problem(gait: int = 1, device="cuda", dtype=torch.float64):
     """Returns (prob, x0, us_init, opts) of the gait at the reference
-    tolerances; the problem carries the unified lane-batched dynamics
-    (cold solves)."""
+    tolerances; the problem carries the unified dynamics, scalar and
+    lane-batched (cold solves)."""
     device = torch.device(device)
     params = hp.HopperParams()
     aux = hp.HopperAux(h=H)
@@ -318,10 +335,35 @@ def gait_errors(xT: torch.Tensor):
     return xT[:, 0] - theta[:, 0], per
 
 
+def run(gait: int = 1, device="cuda", dtype=torch.float64):
+    """The reference's ``run``: ``build_problem`` solved by the scalar
+    ``solve``. Returns ``(prob, result)``."""
+    prob, x0, us_init, opts = build_problem(gait, device=device, dtype=dtype)
+    return prob, solve(prob, x0, us_init, opts)
+
+
+def main_scalar(gait, device, dtype=torch.float64):
+    """The reference's ``main``: the gait by the scalar ``solve``, printed
+    with its wall and its K1 and K2 launches."""
+    prob, x0, us0, opts = build_problem(gait, device=device, dtype=dtype)
+    res, wall, launches = scalar_solve(prob, x0, us0, opts)
+    travel, per = (float(a[0]) for a in gait_errors(res.xs[-1][None]))
+    print("converged:", bool(res.converged),
+          "obj:", round(float(res.objective), 4),
+          "iters:", int(res.iterations), "al:", int(res.al_iterations),
+          "vio: %.2e" % float(res.constraint_violation))
+    print("travel:", round(travel, 4), "(>= 0.5)")
+    print("periodicity err:", per)
+    print("device=%s dtype=%s gait=%d wall %.3f s launches %s"
+          % (device, dtype, gait, wall, launches))
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--deploy", action="store_true",
-                    help="run the lane-batched deploy solve")
+                    help="run the lane-batched deploy solve (default: the "
+                         "scalar solve of the reference's main)")
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--gait", type=int, choices=sorted(GAIT_COSTS),
                     default=1)
@@ -331,7 +373,8 @@ def main(argv=None):
                     help="default: f32 on a CUDA device with --deploy, "
                          "else f64")
     ap.add_argument("--riccati-kernel", action="store_true",
-                    help="the backward pass in one K3 launch")
+                    help="with --deploy: the backward pass in one K3 "
+                         "launch")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     device = torch.device(args.device)
@@ -341,23 +384,19 @@ def main(argv=None):
     dtype = {None: None, "f32": torch.float32,
              "f64": torch.float64}[args.dtype]
 
-    if args.deploy:
-        prob, x0, us0, opts = build_deploy_problem(device, gait=args.gait,
-                                                   dtype=dtype)
-        B = args.batch
-        x0s = deploy_x0s(x0, B, args.seed)
-        schedule = DEPLOY_MAX_ITER_SCHEDULE
-        stall = DEPLOY_AL_STALL_ROUNDS
-    else:
-        prob, x0, us0, opts = build_problem(args.gait, device=device,
-                                            dtype=dtype or torch.float64)
-        B = 1
-        x0s = x0[None]
-        schedule, stall = None, 0
+    if args.riccati_kernel and not args.deploy:
+        ap.error("--riccati-kernel needs --deploy")
+    if not args.deploy:
+        return main_scalar(args.gait, device, dtype or torch.float64)
+    prob, x0, us0, opts = build_deploy_problem(device, gait=args.gait,
+                                               dtype=dtype)
+    B = args.batch
+    x0s = deploy_x0s(x0, B, args.seed)
     opts = dataclasses.replace(opts, riccati_kernel=args.riccati_kernel)
-    solve = make_segmented_solver(prob, opts, B, x0.dtype, device,
-                                  max_iter_schedule=schedule,
-                                  al_stall_rounds=stall)
+    solve_b = make_segmented_solver(
+        prob, opts, B, x0.dtype, device,
+        max_iter_schedule=DEPLOY_MAX_ITER_SCHEDULE,
+        al_stall_rounds=DEPLOY_AL_STALL_ROUNDS)
     from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
         batched_solve,
     )
@@ -377,7 +416,7 @@ def main(argv=None):
         c.launches = c.tile_launches = 0
         c.widths.clear()
     t0 = time.perf_counter()
-    res = solve(x0s, us0)
+    res = solve_b(x0s, us0)
     if device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -408,7 +447,7 @@ def main(argv=None):
     print("K3 launches %d by (kernel, width) %s"
           % (riccati_backward.launches,
              dict(sorted(riccati_backward.widths.items()))))
-    print("stats %s" % dict(solve.stats))
+    print("stats %s" % dict(solve_b.stats))
     return res
 
 

@@ -21,8 +21,15 @@ CUDA device; ``--device cpu`` runs the plain versions. The deploy
 scenarios translate the whole scene (block and pusher) rigidly, so the
 contact geometry stays feasible while the reach-the-goal problem varies;
 the executor settings are the reference bench's (no inner-budget
-schedule, ``al_stall_rounds=2``). Without ``--deploy`` the script solves
-the single problem of ``build_problem`` with the same executor at batch 1.
+schedule, ``al_stall_rounds=2``).
+
+Without ``--deploy`` the script runs the reference's ``main``: the
+translate and the rotate problem (``build_problem``) solved by the scalar
+AL-iLQR ``solver.ilqr.solve`` in float64, line-search rollouts
+warm-started step by step from the accepted trajectory's solver
+variables. On the card each rollout step runs K1n at width 1 and each
+derivative sweep K1n at width T-1 = 25 with its IFT solves in K2 at (35,
+13).
 """
 
 from __future__ import annotations
@@ -40,11 +47,13 @@ from optimization_dynamics_tpu_torch.models import planar_push as pp
 from optimization_dynamics_tpu_torch.solver.ilqr import (
     ILQROptions,
     ILQRProblem,
+    solve,
 )
 from optimization_dynamics_tpu_torch.solver.ilqr_segmented import (
     make_segmented_solver,
 )
 from optimization_dynamics_tpu_torch.solver.interior_point import IPOptions
+from optimization_dynamics_tpu_torch.utils.measure import scalar_solve
 
 H = 0.1
 T = 26
@@ -64,7 +73,9 @@ TERMINAL_SEL = (0, 1, 2, 5, 6, 7)   # block pose of both configurations
 def build_problem(mode: str = "rotate", gradient_bundle: bool = False,
                   device="cuda", dtype=torch.float64):
     """Returns (prob, x0, us_init, opts). ``mode``: "translate" | "rotate".
-    The problem carries the lane-batched dynamics (cold solves)."""
+    The problem carries the scalar dynamics for ``solver.ilqr.solve``
+    (steps warm-started from the accepted trajectory's solver variables
+    at the same timestep) and the lane-batched ones (cold solves)."""
     if gradient_bundle:
         raise NotImplementedError(
             "planar_push: the gradient bundle (solver/gradient_bundle.py) "
@@ -117,6 +128,10 @@ def build_problem(mode: str = "rotate", gradient_bundle: bool = False,
         terminal_con=terminal_con,
         ineq_mask=torch.ones((T - 1, 2 * NU), dtype=torch.bool,
                              device=device),
+        dynamics=lambda t_, x, u: dyn.step(x, u, aux),
+        dynamics_jac=lambda t_, x, u: dyn.step_jac(x, u, aux),
+        dynamics_ws=lambda t_, x, u, z: dyn.step_carry(z, x, u, aux),
+        ws_init=lambda t_, x, u: dyn.carry_init(x),
         dynamics_batched=lambda t_, xs, us: dyn.step_batched(xs, us, aux),
         dynamics_jac_batched=lambda ts, xs, us: dyn.step_jac_batched(
             xs, us, aux),
@@ -196,13 +211,41 @@ def deploy_x0s(x0: torch.Tensor, B: int, seed: int = 0) -> torch.Tensor:
                                       device=x0.device)
 
 
+def run(mode: str = "rotate", device="cuda", dtype=torch.float64):
+    """The reference's ``run``: ``build_problem`` solved by the scalar
+    ``solve``. Returns ``(prob, result)``."""
+    prob, x0, us_init, opts = build_problem(mode, device=device, dtype=dtype)
+    return prob, solve(prob, x0, us_init, opts)
+
+
+def main_scalar(modes, device, dtype=torch.float64):
+    """The reference's ``main``: each mode by the scalar ``solve``,
+    printed with its wall and its K1 and K2 launches. Returns the last
+    result."""
+    for mode in modes:
+        prob, x0, us0, opts = build_problem(mode, device=device, dtype=dtype)
+        res, wall, launches = scalar_solve(prob, x0, us0, opts)
+        print(f"[{mode}] converged: {bool(res.converged)}"
+              f" obj: {float(res.objective):.4f}"
+              f" iters: {int(res.iterations)}"
+              f" al: {int(res.al_iterations)}"
+              f" vio: {float(res.constraint_violation):.2e}")
+        print("  final block pose:",
+              np.round(res.xs[-1][5:8].cpu().numpy(), 4))
+        print("[%s] device=%s dtype=%s wall %.3f s launches %s"
+              % (mode, device, dtype, wall, launches))
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--deploy", action="store_true",
-                    help="run the lane-batched deploy solve")
+                    help="run the lane-batched deploy solve (default: the "
+                         "scalar solves of the reference's main)")
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--mode", choices=("translate", "rotate"),
-                    default="translate")
+                    default=None,
+                    help="default: translate with --deploy, both without")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain versions)")
     ap.add_argument("--dtype", choices=("f32", "f64"), default=None,
@@ -217,20 +260,17 @@ def main(argv=None):
     dtype = {None: None, "f32": torch.float32,
              "f64": torch.float64}[args.dtype]
 
-    if args.deploy:
-        prob, x0, us0, opts = build_deploy_problem(device, args.mode,
-                                                   dtype=dtype)
-        B = args.batch
-        x0s = deploy_x0s(x0, B, args.seed)
-        solve = make_segmented_solver(
-            prob, opts, B, x0.dtype, device,
-            al_stall_rounds=DEPLOY_AL_STALL_ROUNDS)
-    else:
-        prob, x0, us0, opts = build_problem(args.mode, device=device,
-                                            dtype=dtype or torch.float64)
-        B = 1
-        x0s = x0[None]
-        solve = make_segmented_solver(prob, opts, B, x0.dtype, device)
+    if not args.deploy:
+        return main_scalar((args.mode,) if args.mode
+                           else ("translate", "rotate"), device,
+                           dtype or torch.float64)
+    mode = args.mode or "translate"
+    prob, x0, us0, opts = build_deploy_problem(device, mode, dtype=dtype)
+    B = args.batch
+    x0s = deploy_x0s(x0, B, args.seed)
+    solve_b = make_segmented_solver(
+        prob, opts, B, x0.dtype, device,
+        al_stall_rounds=DEPLOY_AL_STALL_ROUNDS)
     if device.type == "cuda":
         from optimization_dynamics_tpu_torch.ops.kernels._build import (
             load_library,
@@ -238,7 +278,7 @@ def main(argv=None):
         load_library()          # build the kernels before the clock
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = solve(x0s, us0)
+    res = solve_b(x0s, us0)
     if device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -248,7 +288,7 @@ def main(argv=None):
     mean_obj = float(obj[conv].mean()) if n_conv else float("nan")
     med_obj = float(np.median(obj[conv])) if n_conv else float("nan")
     print("device=%s dtype=%s batch=%d mode=%s"
-          % (device, x0.dtype, B, args.mode))
+          % (device, x0.dtype, B, mode))
     print("converged %d/%d (%.4f)" % (n_conv, B, n_conv / B))
     print("mean converged objective %.6f, median %.6f" % (mean_obj, med_obj))
     print("wall %.3f s, %.4f converged solves/s" % (wall, n_conv / wall))
@@ -257,7 +297,7 @@ def main(argv=None):
              int(res.al_iterations[0])))
     print("final block pose (lane 0) %s"
           % np.round(res.xs[0, -1, 5:8].cpu().numpy(), 4).tolist())
-    print("stats %s" % dict(solve.stats))
+    print("stats %s" % dict(solve_b.stats))
     return res
 
 

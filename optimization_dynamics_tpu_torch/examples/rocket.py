@@ -31,8 +31,16 @@ settings are the reference bench's rocket cell (per-AL-round inner
 budgets, two stalled AL rounds, compaction). The scenarios scatter the
 initial position by 0.1 N(0, 1) and the velocity by 0.05 N(0, 1), the
 attitude kept, from a numpy seed. ``--batch 16`` is the reference
-bench's own width. Without ``--deploy`` the script solves the single
-landing (``build_problem``) with the same executor at batch 1.
+bench's own width.
+
+Without ``--deploy`` the script runs the reference's ``main``: the
+landing (``build_problem``) solved by the scalar AL-iLQR
+``solver.ilqr.solve`` in float64, each step the scalar ``step`` (the
+lane-batched members on a batch of one): on the card K1
+(``rocket_projection``) at width 1 and the midpoint solve's Newton steps
+in K2 at (12, 1), width 1, a host loop; each derivative sweep K1 at width
+T-1 = 60 and K2 at (10, 4), (12, 1) and (12, 16). It takes minutes on
+the card.
 """
 
 from __future__ import annotations
@@ -49,10 +57,12 @@ from optimization_dynamics_tpu_torch.models import rocket
 from optimization_dynamics_tpu_torch.solver.ilqr import (
     ILQROptions,
     ILQRProblem,
+    solve,
 )
 from optimization_dynamics_tpu_torch.solver.ilqr_segmented import (
     make_segmented_solver,
 )
+from optimization_dynamics_tpu_torch.utils.measure import scalar_solve
 
 H = 0.05
 T = 61
@@ -106,10 +116,12 @@ def initial_and_goal(device="cuda", dtype=torch.float64):
 
 
 def _wire(prob: ILQRProblem, dyn, warm: bool) -> ILQRProblem:
-    """The problem with ``dyn``'s lane-batched members: cold ones, and
-    with ``warm`` the warm-start members and the cold line-search policy
-    (``ws_linesearch=False``)."""
+    """The problem with ``dyn``'s scalar members and its lane-batched
+    ones: cold ones, and with ``warm`` the warm-start members and the
+    cold line-search policy (``ws_linesearch=False``)."""
     prob = prob._replace(
+        dynamics=lambda t, x, u: dyn.step(x, u),
+        dynamics_jac=lambda t, x, u: dyn.step_jac(x, u),
         dynamics_batched=lambda t, xs, us: dyn.step_batched(xs, us),
         dynamics_jac_batched=lambda ts, xs, us: dyn.step_jac_batched(xs,
                                                                      us))
@@ -129,8 +141,8 @@ def _wire(prob: ILQRProblem, dyn, warm: bool) -> ILQRProblem:
 def build_problem(mode: str = "projection", device="cuda",
                   dtype=torch.float64, seed: int = 1):
     """Returns (prob, x1, us_init, opts, dyn) at the reference
-    tolerances; the problem carries the lane-batched dynamics (cold
-    solves). ``mode``: "projection" | "nominal"."""
+    tolerances; the problem carries the scalar and the lane-batched
+    dynamics (cold solves). ``mode``: "projection" | "nominal"."""
     device = torch.device(device)
     params = rocket.RocketParams()
     projection = mode == "projection"
@@ -279,10 +291,41 @@ def final_state_error(xs: torch.Tensor, xT: torch.Tensor):
     return (xs[:, -1, 2:] - xT[2:]).abs().amax(dim=-1)
 
 
+def run(mode: str = "projection", device="cuda", dtype=torch.float64):
+    """The reference's ``run``: ``build_problem`` solved by the scalar
+    ``solve``. Returns ``(prob, result, dyn)``."""
+    prob, x1, us_init, opts, dyn = build_problem(mode, device=device,
+                                                 dtype=dtype)
+    return prob, solve(prob, x1, us_init, opts), dyn
+
+
+def main_scalar(mode, device, dtype=torch.float64, log: bool = False):
+    """The reference's ``main``: the landing by the scalar ``solve``,
+    printed with its wall and its K1 and K2 launches; ``log`` prints a
+    line an AL round (``ILQROptions.verbose``)."""
+    prob, x1, us0, opts, _ = build_problem(mode, device=device, dtype=dtype)
+    opts = dataclasses.replace(opts, verbose=log)
+    res, wall, launches = scalar_solve(prob, x1, us0, opts)
+    cone_ok = bool(thrust_cone_ok(res.us[None], mode)[0])
+    _, xT = initial_and_goal(device, dtype)
+    print(f"[{mode}] converged: {bool(res.converged)}"
+          f" obj: {float(res.objective):.4f}"
+          f" iters: {int(res.iterations)}"
+          f" al: {int(res.al_iterations)}"
+          f" vio: {float(res.constraint_violation):.2e}"
+          f" thrust-cone feasible: {cone_ok}")
+    print("final state err:",
+          float(final_state_error(res.xs[None], xT)[0]))
+    print("device=%s dtype=%s wall %.3f s launches %s"
+          % (device, dtype, wall, launches))
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--deploy", action="store_true",
-                    help="run the lane-batched deploy solve")
+                    help="run the lane-batched deploy solve (default: the "
+                         "scalar solve of the reference's main)")
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--mode", choices=("projection", "nominal"),
                     default="projection")
@@ -293,9 +336,9 @@ def main(argv=None):
                          "else f64")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log", action="store_true",
-                    help="print the executor's progress (each inner "
-                         "iteration and AL round) with the seconds since "
-                         "the solve began")
+                    help="print the solve's progress (with --deploy each "
+                         "inner iteration and AL round, else each AL "
+                         "round) with the seconds since the solve began")
     args = ap.parse_args(argv)
     log = None
     if args.log:
@@ -308,22 +351,17 @@ def main(argv=None):
     dtype = {None: None, "f32": torch.float32,
              "f64": torch.float64}[args.dtype]
 
-    if args.deploy:
-        prob, x0, us0, opts = build_deploy_problem(device, mode=args.mode,
-                                                   dtype=dtype)
-        B = args.batch
-        x0s = deploy_x0s(x0, B, args.seed)
-        solve = make_segmented_solver(
-            prob, opts, B, x0.dtype, device,
-            max_iter_schedule=DEPLOY_MAX_ITER_SCHEDULE,
-            al_stall_rounds=DEPLOY_AL_STALL_ROUNDS, log=log)
-    else:
-        prob, x0, us0, opts, _ = build_problem(
-            args.mode, device=device, dtype=dtype or torch.float64)
-        B = 1
-        x0s = x0[None]
-        solve = make_segmented_solver(prob, opts, B, x0.dtype, device,
-                                      log=log)
+    if not args.deploy:
+        return main_scalar(args.mode, device, dtype or torch.float64,
+                           log=args.log)
+    prob, x0, us0, opts = build_deploy_problem(device, mode=args.mode,
+                                               dtype=dtype)
+    B = args.batch
+    x0s = deploy_x0s(x0, B, args.seed)
+    solve_b = make_segmented_solver(
+        prob, opts, B, x0.dtype, device,
+        max_iter_schedule=DEPLOY_MAX_ITER_SCHEDULE,
+        al_stall_rounds=DEPLOY_AL_STALL_ROUNDS, log=log)
     from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
         batched_solve,
     )
@@ -340,7 +378,7 @@ def main(argv=None):
     fused_ip.launches = fused_ip.tile_launches = 0
     fused_ip.widths.clear()
     t0 = time.perf_counter()
-    res = solve(x0s, us0)
+    res = solve_b(x0s, us0)
     if device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -374,7 +412,7 @@ def main(argv=None):
           % main.k1_launches)
     print("K2 launches %d by (n, k, kernel, width) %s"
           % (sum(main.k2_launches.values()), main.k2_launches))
-    print("stats %s" % dict(solve.stats))
+    print("stats %s" % dict(solve_b.stats))
     return res
 
 

@@ -32,13 +32,13 @@ an inertia of 1e-5; that component is zero in exact arithmetic, and in
 float32 its rounding is amplified 1e5-fold. ``ode`` keeps the
 reference's expression and its order of operations for it.
 
-Ported: the lane-batched members of ``make_rocket_dynamics``
-(``step_batched``, ``step_jac_batched``, their warm-started variants and
-``ws_init_batched``), with ``project_batched`` / ``project_jac_batched``
-as the counterparts of the reference's scalar ``project`` /
-``project_jac``. Not ported yet: the scalar ``step``, ``step_jac``,
-``project`` and ``project_jac`` (the reference's ``make_solver`` /
-``make_sensitivity`` path).
+``make_rocket_dynamics`` gives the lane-batched members (``step_batched``,
+``step_jac_batched``, their warm-started variants, ``ws_init_batched``,
+``project_batched`` and ``project_jac_batched``) and the scalar ``step``,
+``step_jac``, ``project`` and ``project_jac``, which are the batched
+members on a batch of one: on the card a scalar step runs K1 at width 1
+for its projection and the midpoint solve's Newton steps in K2 at (12,
+1), width 1.
 """
 
 from __future__ import annotations
@@ -211,10 +211,14 @@ def projection_model() -> ProjectionModel:
 
 
 class RocketDynamics(NamedTuple):
-    """The lane-batched members. The projection always starts cold; the
-    dynamics from y = x (``ws_init_batched``) or from the threaded ws,
-    and the warm-started members return ys as the next ws."""
+    """The scalar and lane-batched members. The projection always starts
+    cold; the dynamics from y = x (``ws_init_batched``) or from the
+    threaded ws, and the warm-started members return ys as the next ws."""
 
+    step: Callable                  # (x, u) -> y
+    step_jac: Callable              # (x, u) -> (y, fx, fu)
+    project: Callable               # (u,) -> u_hat
+    project_jac: Callable           # (u,) -> (u_hat, du_hat/du)
     step_batched: Callable          # (xs, us) -> ys
     step_jac_batched: Callable      # (xs, us) -> (ys, fxs, fus)
     step_batched_ws: Callable       # (xs, us, zs) -> (ys, zs')
@@ -300,7 +304,22 @@ def make_rocket_dynamics(params: RocketParams = RocketParams(),
     def ws_init_batched(xs):
         return xs                 # warm start y = x
 
-    return RocketDynamics(step_batched=step_batched,
+    # the scalar members: the batched ones on a batch of one
+    def step(x, u):
+        return step_batched(x[None], u[None])[0]
+
+    def step_jac(x, u):
+        return tuple(a[0] for a in step_jac_batched(x[None], u[None]))
+
+    def project(u):
+        return project_batched(u[None])[0]
+
+    def project_jac(u):
+        return tuple(a[0] for a in project_jac_batched(u[None]))
+
+    return RocketDynamics(step=step, step_jac=step_jac, project=project,
+                          project_jac=project_jac,
+                          step_batched=step_batched,
                           step_jac_batched=step_jac_batched,
                           step_batched_ws=step_batched_ws,
                           step_jac_batched_ws=step_jac_batched_ws,

@@ -79,7 +79,8 @@ projection_model`` gives the residual, the cone spec and the functor,
 and the wrapper takes its cold starts as z0s.
 
 The plain version is the port of ``make_solver_batched`` (geometric
-schedule) with its Newton solve pinned to K2's plain QR. The wrapper
+schedule; ``IPOptions.mehrotra`` raises) with its Newton solve pinned to
+K2's plain QR. The wrapper
 takes it for CPU tensors only; for CUDA tensors it launches the kernel
 or raises.
 """
@@ -115,7 +116,13 @@ __all__ = ["make_fused_ip_solver", "make_fused_ip_plain", "fused_ip"]
 
 def make_fused_ip_plain(model, opts: IPOptions, device, dtype) -> Callable:
     """K1's plain version: ``make_solver_batched`` with the Newton solve
-    through ``batched_solve_plain`` on any device."""
+    through ``batched_solve_plain`` on any device. The kernels implement
+    the geometric kappa schedule only, so the Mehrotra predictor-corrector
+    raises here (the reference's Pallas kernel ignores the flag)."""
+    if opts.mehrotra:
+        raise NotImplementedError(
+            "fused IP kernel: IPOptions.mehrotra is not implemented; solve "
+            "with make_solver_batched")
     return _make_solver_batched(model.residual, model.spec, opts, device,
                                 dtype, batched_solve_plain)
 

@@ -32,28 +32,13 @@ from optimization_dynamics_tpu_torch.solver.ilqr import (
     ILQROptions,
     ILQRProblem,
     _al_multiplier,
+    _cholesky_gains,
     _make_al_costs,
+    _pad_masks,
     _violation,
 )
 
 __all__ = ["make_phases"]
-
-
-def _pad_masks(prob: ILQRProblem, device) -> ILQRProblem:
-    T, nu = prob.T, prob.nu
-    ncon, nconT = prob.ncon, prob.nconT
-    as_bool = lambda m: torch.as_tensor(m, dtype=torch.bool, device=device)
-    return prob._replace(
-        ineq_mask=(torch.zeros((T - 1, max(ncon, 1)), dtype=torch.bool,
-                               device=device)
-                   if prob.ineq_mask is None else as_bool(prob.ineq_mask)),
-        terminal_ineq_mask=(torch.zeros(max(nconT, 1), dtype=torch.bool,
-                                        device=device)
-                            if prob.terminal_ineq_mask is None
-                            else as_bool(prob.terminal_ineq_mask)),
-        u_mask=(torch.ones((T - 1, nu), dtype=torch.bool, device=device)
-                if prob.u_mask is None else as_bool(prob.u_mask)),
-    )
 
 
 def make_phases(prob: ILQRProblem, opts: ILQROptions, B: int, dtype,
@@ -198,13 +183,10 @@ def make_phases(prob: ILQRProblem, opts: ILQROptions, B: int, dtype,
         """Per-lane Riccati recursion over batched tensors, t = T-2..0.
 
         A Quu that is not positive definite gives ``ok = False`` and NaN
-        gains for its lane (the reference's Cholesky returns NaN there;
-        ``torch.linalg.cholesky`` would raise, so ``cholesky_ex`` reports
-        it through ``info``)."""
+        gains for its lane (``ilqr._cholesky_gains``)."""
         Vx, Vxx = gTs, HTs
         Ks, ks, dV1s, dV2s, qu_infs, oks = ([None] * (T - 1)
                                              for _ in range(6))
-        nan = torch.tensor(float("nan"), dtype=dtype, device=device)
         for t in range(T - 2, -1, -1):
             fx, fu = fxs[:, t], fus[:, t]
             Qx = lxs[:, t] + torch.einsum("bji,bj->bi", fx, Vx)
@@ -222,13 +204,7 @@ def make_phases(prob: ILQRProblem, opts: ILQROptions, B: int, dtype,
             Quu = torch.where(mm, Quu, 0.0) + torch.diag_embed(
                 torch.where(m[None], regs[:, None], 1.0))
 
-            L, info = torch.linalg.cholesky_ex(Quu)
-            L = torch.where((info == 0)[:, None, None], L, nan)
-            ok = torch.isfinite(L).all(dim=2).all(dim=1)
-            rhs = torch.cat([Qu[..., None], Qux], dim=2)
-            sol = torch.cholesky_solve(rhs, L)
-            k = -sol[:, :, 0]
-            K = -sol[:, :, 1:]
+            K, k, ok = _cholesky_gains(Quu, Qu, Qux)
 
             Vx = (Qx + torch.einsum("bji,bj->bi", K, Qu)
                   + torch.einsum("bji,bj->bi", Qux, k)

@@ -1,18 +1,24 @@
 """Lane-batched path-following interior-point solver for cone-
 complementarity problems, with implicit-function-theorem sensitivities.
 
-Port of ``optimization_dynamics_tpu/solver/interior_point.py`` (the
-batched members): it solves ``r(z, theta, kappa) = 0`` for a batch of
-scenarios, where the residual's bilinear rows encode orthant / SOC
-complementarity relaxed by the central-path parameter ``kappa``, with a
-damped Newton method, an analytic fraction-to-boundary step and a
-vectorized first-improvement backtracking line search, driving ``kappa``
-down a geometric schedule to ``kappa_final_frac * kappa_tol``.
-Sensitivities come from the IFT at the relaxed solution:
-``dz/dtheta = -(dr/dz)^-1 dr/dtheta``.
+Port of ``optimization_dynamics_tpu/solver/interior_point.py``: it
+solves ``r(z, theta, kappa) = 0`` for a batch of scenarios, where the
+residual's bilinear rows encode orthant / SOC complementarity relaxed by
+the central-path parameter ``kappa``, with a damped Newton method, an
+analytic fraction-to-boundary step and a vectorized first-improvement
+backtracking line search, driving ``kappa`` down a geometric schedule to
+``kappa_final_frac * kappa_tol``, or with ``IPOptions.mehrotra`` picking
+it adaptively by a predictor-corrector step. Sensitivities come from the
+IFT at the relaxed solution: ``dz/dtheta = -(dr/dz)^-1 dr/dtheta``.
 
-The Mehrotra predictor-corrector and the scalar ``make_solver`` are not
-ported yet.
+The scalar ``make_solver`` and ``make_sensitivity`` run the batched
+solver on a batch of one. The reference's scalar and batched solvers
+differ in one place, the floor of the kappa restart after a stall
+(``kappa_final`` in the scalar one, ``max(kappa_final, kappa_init_min)``
+in the batched one), which never binds: the restart resets every cone
+variable to 1 (an SOC group to (1, 0.1, ...)), so each orthant row's
+product is 1 and each SOC head's above it, and the violation it clips is
+at least 1, not below either floor for any ``kappa_init_min <= 1``.
 """
 
 from __future__ import annotations
@@ -23,11 +29,13 @@ from typing import Callable, NamedTuple
 import torch
 
 from optimization_dynamics_tpu_torch.ops.cones import (ConeSpec,
+                                                       delta_products,
                                                        step_to_boundary)
 from optimization_dynamics_tpu_torch.ops.linalg import batched_newton_solve
 
-__all__ = ["IPOptions", "IPSolution", "make_solver_batched",
-           "make_sensitivity_batched", "batched_jacobian", "ls_trials"]
+__all__ = ["IPOptions", "IPSolution", "make_solver", "make_solver_batched",
+           "make_sensitivity", "make_sensitivity_batched",
+           "batched_jacobian", "ls_trials"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +59,11 @@ class IPOptions:
     center_frac: float = 0.1       # inner solve tol: |r|_inf < center_frac*kappa
     tau_min: float = 0.75          # most conservative fraction-to-boundary
     tau_max: float = 0.99
-    # Mehrotra predictor-corrector: not ported yet (the solvers raise)
+    # Mehrotra predictor-corrector: an affine predictor solve picks the
+    # central-path target kappa = clip(max(sigma mu, infeas_frac
+    # |r_eq|_inf), kappa_final, kappa) with sigma = (mu_aff / mu)^3, and
+    # the corrector adds the a_aff^2-damped second-order term. The fused
+    # IP kernel (K1) implements the geometric schedule only and raises.
     mehrotra: bool = False
     mehrotra_infeas_frac: float = 0.1
 
@@ -147,12 +159,11 @@ def _make_solver_batched(residual_fn: Callable, spec: ConeSpec,
     n, n), b (B, n, k))`` as a parameter, so the fused kernel's plain
     version can pin the solve to the plain QR."""
     spec.validate()
-    if opts.mehrotra:
-        raise NotImplementedError(
-            "IPOptions.mehrotra: the predictor-corrector is not ported")
     jacobian_fn = batched_jacobian(residual_fn)
 
     has_cones = bool(spec.ort_prim) or bool(spec.soc_prim)
+    use_meh = opts.mehrotra and has_cones
+    n_cones = max(len(spec.ort_rows) + len(spec.soc_rows), 1)
     kappa_final = opts.kappa_final_frac * opts.kappa_tol
     kappa_lo = max(kappa_final, opts.kappa_init_min)
     eq_mask, bil_mask, head_mask = _row_masks(spec, device, dtype)
@@ -197,9 +208,36 @@ def _make_solver_batched(residual_fn: Callable, spec: ConeSpec,
             if opts.gamma_reg > 0.0:
                 Js = Js + (opts.gamma_reg * kappas)[:, None, None] \
                     * torch.eye(nz, dtype=dtype, device=device)
-            r_k = r0s - kappas[:, None] * head_mask
-            merit_cur = torch.amax(torch.abs(r_k), dim=1)
-            deltas = linear_solve(Js, r_k[..., None])[..., 0]
+            if use_meh:
+                # predictor: the affine direction toward kappa = 0; its
+                # step sets the centering weight and the new target,
+                # monotone and never below the equality infeasibility
+                d_aff = linear_solve(Js, r0s[..., None])[..., 0]
+                a_aff = step_to_boundary(spec, zs, d_aff, tau=1.0)
+                r_affs = res_v(zs - a_aff[:, None] * d_aff, thetas)
+                mus = torch.sum(head_mask * r0s, dim=1) / n_cones
+                mu_affs = torch.clamp_min(
+                    torch.sum(head_mask * r_affs, dim=1) / n_cones, 0.0)
+                sigmas = torch.clamp(
+                    (mu_affs / torch.clamp_min(mus, 1e-30)) ** 3, 0.0, 1.0)
+                r_eqs = torch.amax(torch.abs(r0s) * eq_mask, dim=1)
+                descending = mus > 1.25 * kappa_final
+                target = torch.minimum(torch.clamp_min(torch.maximum(
+                    sigmas * mus, opts.mehrotra_infeas_frac * r_eqs),
+                    kappa_final), kappas)
+                kappas = torch.where(descending, target, kappa_final)
+                r_k = r0s - kappas[:, None] * head_mask
+                merit_cur = torch.amax(torch.abs(r_k), dim=1)
+                # corrector: the second-order products of the achievable
+                # affine step, off once mu reaches the parking floor
+                corr = torch.where(descending[:, None],
+                                   (a_aff * a_aff)[:, None]
+                                   * delta_products(spec, d_aff), 0.0)
+                deltas = linear_solve(Js, (r_k + corr)[..., None])[..., 0]
+            else:
+                r_k = r0s - kappas[:, None] * head_mask
+                merit_cur = torch.amax(torch.abs(r_k), dim=1)
+                deltas = linear_solve(Js, r_k[..., None])[..., 0]
 
             taus = torch.clamp(1.0 - merit_cur, opts.tau_min, opts.tau_max)
             alpha0 = torch.clamp_max(
@@ -227,12 +265,15 @@ def _make_solver_batched(residual_fn: Callable, spec: ConeSpec,
             stalled_new = ~any_improve
 
             zs_new = zs - alpha[:, None] * deltas
-            centered = new_merit < torch.clamp_min(
-                opts.center_frac * kappas, opts.r_tol)
-            kappas_new = torch.where(
-                centered,
-                torch.clamp_min(kappas * opts.kappa_scale, kappa_final),
-                kappas)
+            if use_meh:
+                kappas_new = kappas   # adaptive target, re-picked next time
+            else:
+                centered = new_merit < torch.clamp_min(
+                    opts.center_frac * kappas, opts.r_tol)
+                kappas_new = torch.where(
+                    centered,
+                    torch.clamp_min(kappas * opts.kappa_scale, kappa_final),
+                    kappas)
 
             if has_cones:
                 # one-shot stall recovery: reset the cone variables to the
@@ -279,6 +320,29 @@ def make_solver_batched(residual_fn: Callable, spec: ConeSpec,
     """
     return _make_solver_batched(residual_fn, spec, opts, device, dtype,
                                 batched_newton_solve)
+
+
+def make_solver(residual_fn: Callable, spec: ConeSpec, opts: IPOptions,
+                device, dtype) -> Callable:
+    """Build ``solve(z0 (nz,), theta (ntheta,)) -> IPSolution`` with 0-dim
+    fields: the batched solver on a batch of one."""
+    solve_b = make_solver_batched(residual_fn, spec, opts, device, dtype)
+
+    def solve(z0: torch.Tensor, theta: torch.Tensor) -> IPSolution:
+        return IPSolution(*(a[0] for a in solve_b(z0[None], theta[None])))
+
+    return solve
+
+
+def make_sensitivity(residual_fn: Callable, spec: ConeSpec) -> Callable:
+    """``sens(z (nz,), theta (ntheta,)) -> dz/dtheta (nz, ntheta)``: the
+    lane-batched IFT sensitivities on a batch of one."""
+    sens_b = make_sensitivity_batched(residual_fn, spec)
+
+    def sens(z: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
+        return sens_b(z[None], theta[None])[0]
+
+    return sens
 
 
 def make_sensitivity_batched(residual_fn: Callable,

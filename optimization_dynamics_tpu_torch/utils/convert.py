@@ -118,14 +118,16 @@ def _options(src, cls, renames=None):
 
 
 def ip_options(o) -> IPOptions:
-    """The port's ``IPOptions`` from the reference's."""
+    """The port's ``IPOptions`` from the reference's (``mehrotra`` and
+    ``mehrotra_infeas_frac`` included; ``verbose`` must be off)."""
     return _options(o, IPOptions)
 
 
 def ilqr_options(o) -> ILQROptions:
     """The port's ``ILQROptions`` from the reference's: ``pallas_riccati``
-    becomes ``riccati_kernel`` (K3); the scalar-solver switches must be
-    off."""
+    becomes ``riccati_kernel`` (K3); the scalar solver's
+    ``parallel_riccati``, ``parallel_linesearch`` and ``verbose`` carry
+    across."""
     return _options(o, ILQROptions, {"pallas_riccati": "riccati_kernel"})
 
 

@@ -35,7 +35,11 @@ inputs, so two checkouts that both have this module time the same work:
 * ``rollout_batch``: K4's inputs at the cartpole deploy's shapes;
 * ``lqr_batch``: K3's inputs, random LQR data;
 * ``grow_batch``: a batch repeated to a wider width (a cut's far side,
-  a width sweep).
+  a width sweep);
+* ``scalar_solve``: one scenario's AL-iLQR solve, timed, with the K1 and
+  K2 launches it made;
+* ``kernel_trace``: a call under ``torch.profiler`` and the card's kernel
+  events of its trace; ``busy_seconds``: the union of their intervals.
 
 Every input comes from a numpy seed.
 """
@@ -54,7 +58,8 @@ __all__ = ["nvidia_smi", "cuda_ms", "device_ms", "launch_ms",
            "warm_batch", "push_batch", "rocket_projection_batch",
            "hopper_batch", "hopper_deploy_batch", "hopper_systems",
            "rocket_systems", "rollout_batch",
-           "lqr_batch", "grow_batch"]
+           "lqr_batch", "grow_batch", "scalar_solve", "kernel_trace",
+           "busy_seconds"]
 
 
 def nvidia_smi() -> str:
@@ -438,3 +443,79 @@ def grow_batch(ts, B: int):
     reps = -(-B // ts[0].shape[0])
     return [t.repeat((reps,) + (1,) * (t.ndim - 1))[:B].contiguous()
             for t in ts]
+
+
+def scalar_solve(prob, x0, us0, opts):
+    """The scalar AL-iLQR solve of ``prob`` from ``(x0, us0)`` on their
+    device, timed from its start to the card's end (on the card the
+    kernels are built before the clock starts). Returns ``(result, wall
+    seconds, launches)``: launches of the fused IP kernel (K1, by kernel
+    and width) and of the batched QR (K2, by n, k, kernel and width)
+    during the solve, as ``{"fused_ip": {"tile B": n}, "batched_solve":
+    {"n k kernel B": n}}``."""
+    import time
+
+    from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
+        batched_solve)
+    from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import fused_ip
+    from optimization_dynamics_tpu_torch.solver.ilqr import solve
+
+    cuda = x0.device.type == "cuda"
+    if cuda:
+        from optimization_dynamics_tpu_torch.ops.kernels._build import (
+            load_library)
+        load_library()
+        torch.cuda.synchronize()
+    fused_ip.widths.clear()
+    batched_solve.shape_widths.clear()
+    t0 = time.perf_counter()
+    res = solve(prob, x0, us0, opts)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    key = lambda k: " ".join(str(v) for v in k)
+    return res, wall, {
+        "fused_ip": {key(k): n for k, n in sorted(fused_ip.widths.items())},
+        "batched_solve": {key(k): n for k, n in
+                          sorted(batched_solve.shape_widths.items())}}
+
+
+def kernel_trace(run):
+    """``run()`` under ``torch.profiler``, host and card: ``(its result,
+    the card's kernel events)``, each event a dict of the Chrome trace
+    with the kernel's ``name`` and its start ``ts`` and ``dur`` in
+    microseconds."""
+    import json
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = run()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.unlink(path)
+    return out, [e for e in events if e.get("cat") == "kernel"]
+
+
+def busy_seconds(kernels) -> float:
+    """Seconds in the union of the kernel events' intervals: the time the
+    card was busy."""
+    busy, cur = 0.0, None
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels):
+        if cur is None or a > cur[1]:
+            if cur is not None:
+                busy += cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    if cur is not None:
+        busy += cur[1] - cur[0]
+    return busy / 1e6

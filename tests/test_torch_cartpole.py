@@ -200,5 +200,8 @@ def test_convert_options_round_trip():
     to = convert.ilqr_options(ILQROptions(pallas_riccati=True))
     assert to.riccati_kernel is True
     assert convert.ilqr_options(ILQROptions()).riccati_kernel is False
-    with pytest.raises(ValueError):
-        convert.ilqr_options(ILQROptions(parallel_riccati=True))
+    # the scalar solver's options carry across
+    to = convert.ilqr_options(ILQROptions(parallel_riccati=True,
+                                          parallel_linesearch=True,
+                                          verbose=True))
+    assert to.parallel_riccati and to.parallel_linesearch and to.verbose

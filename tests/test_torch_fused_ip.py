@@ -139,8 +139,10 @@ def test_ragged_batch():
 
 def test_wrapper_refuses_non_cpu_tensors_and_mehrotra():
     """The CPU path is the plain version and launches nothing; any other
-    device goes to the kernel or raises; the predictor-corrector is not
-    ported and raises."""
+    device goes to the kernel or raises; the kernel implements the
+    geometric schedule only, so the predictor-corrector raises in K1,
+    while ``make_solver_batched`` runs it as the reference's batched
+    solver does."""
     q0, q1, u = _near_rest_batch(4, 3)
     _, _, z_t, th_t = _inputs(q0, q1, u, np.float64)
     opts = convert.ip_options(JOPTS)
@@ -159,7 +161,16 @@ def test_wrapper_refuses_non_cpu_tensors_and_mehrotra():
     meh = dataclasses.replace(opts, mehrotra=True)
     with pytest.raises(NotImplementedError):
         make_fused_ip_solver(tcp.friction_model(), meh, "cpu", torch.float64)
-    with pytest.raises(NotImplementedError):
-        make_solver_batched(tcp.friction_model().residual,
-                            tcp.cone_spec_friction(), meh, "cpu",
-                            torch.float64)
+    got = make_solver_batched(tcp.friction_model().residual,
+                              tcp.cone_spec_friction(), meh, "cpu",
+                              torch.float64)(z_t, th_t)
+    ref = jax.jit(jax_solver_batched(
+        jcp.friction_model().residual, jcp.cone_spec_friction(),
+        dataclasses.replace(JOPTS, mehrotra=True)))(
+            z_t.numpy(), th_t.numpy())
+    np.testing.assert_array_equal(got.iterations.numpy(),
+                                  np.asarray(ref.iterations))
+    np.testing.assert_array_equal(got.converged.numpy(),
+                                  np.asarray(ref.converged))
+    np.testing.assert_allclose(got.z.numpy(), np.asarray(ref.z), atol=1e-10,
+                               rtol=0)
