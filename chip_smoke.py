@@ -214,7 +214,33 @@ kernels/csrc`` and runs nineteen phases, each printing one ``#`` line:
    (cartpole friction, the acrobot, planar push, the hopper model, the
    rocket's projected step) at three states each (numpy seed 90), float64
    on the card against the CPU: y within 1e-12, the Jacobians within
-   1e-10.
+   1e-10;
+19. the gradient bundle: the push translate problem with the bundle's
+   Jacobians (``examples/planar_push.py::build_problem(gradient_bundle=
+   True)``, float64, T=26, N=50 samples of size 1e-4 N(0, 1) a timestep,
+   the draws from numpy seed 0): the bundle sweep at the initial
+   trajectory (25 states: (T-1)(N+1) = 1,275 cold eval IP solves in one
+   K1n launch) card against a CPU copy, the IP iteration counts first
+   (identical on >= 99.5% of lanes), then y within 1e-12 and fx, fu
+   within 1e-8 at the timesteps whose every solve took the same count;
+   K1n's group kernel at those 1,275 lanes against its plain version
+   with phase 7's checks, float64 at the scalar path's IP options and
+   float32 at the push deploy's, each timed one call and queued, with
+   its bound; then the scalar translate solve with the bundle's
+   Jacobians on the card: converged, the block at x within 0.01 of 1,
+   |u| <= 5 + 1e-6, its objective beside the golden 18.709 (the
+   reference's draws differ, so not gated), K1n's group launched at
+   width 1 (rollout steps) and once at width 1,275 a derivative sweep,
+   no K2 launch, with the wall and the launches by width;
+20. the direct-transcription hopper gait (``examples/comparisons/
+   hopper_direct.py``, float64: 420 variables, 163 equality and 621
+   inequality rows) solved by ``solver/direct.py::solve_direct`` on the
+   card: converged, travel >= 0.5 - 1e-2, complementarity slack sum <
+   1e-2 (the reference test's checks), with the wall; one Gauss-Newton
+   gradient and Hessian at a perturbed w card against the CPU within
+   1e-9. No kernel of the port runs there: its dense solve is
+   ``torch.linalg.solve``, as the reference's is outside any Pallas
+   kernel.
 
 The kernels' designs are in their wrappers' docstrings
 (``ops/kernels/*.py``). K1 (cartpole, the rocket's projection, the
@@ -277,7 +303,12 @@ its tile kernel, timed on those 1,024; ``fused_rollout`` and
 K1a's per-thread kernel at 25,600 warm lanes, ``fused_ip_acrobot_tile``
 its tile kernel at 512 cold lanes; ``fused_ip_nz35`` K1n's per-thread
 kernel at 6,400 warm lanes, ``fused_ip_nz35_group`` its group kernel at
-512 cold lanes, with its time at 6,400 warm as ``ms_warm_6400``;
+512 cold lanes, with its time at 6,400 warm as ``ms_warm_6400``, its
+launches in phase 19's bundle solve as ``launches_gb``, and its times
+and bound at the bundle sweep's 1,275 cold lanes as ``ms_cold_1275``,
+``ms_device_cold_1275`` and ``bound_ms_cold_1275`` (float32; float64,
+the bundle's dtype, as ``ms_cold_1275_f64`` and
+``ms_device_cold_1275_f64``);
 ``batched_solve`` and ``batched_solve_tile`` K2's per-thread and tile
 kernels on the 25,600 (10, 8) systems, ``batched_solve_n6_k6`` and
 ``batched_solve_n6_k6_tile`` on the 25,600 (6, 6) ones; ``riccati`` and
@@ -2225,6 +2256,179 @@ def phase_scalar(device) -> dict:
     return out
 
 
+def phase_gb(device) -> dict:
+    """The gradient bundle on the card: the bundle sweep at the push
+    translate problem's initial trajectory card against a CPU copy, K1n's
+    group kernel at the sweep's 1,275 cold lanes against its plain
+    version, and the scalar push translate solve with the bundle's
+    Jacobians; see the module docstring."""
+    import torch
+
+    from optimization_dynamics_tpu_torch.dynamics import (
+        make_implicit_dynamics)
+    from optimization_dynamics_tpu_torch.examples import planar_push as ex
+    from optimization_dynamics_tpu_torch.models import planar_push as pp
+    from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
+        batched_solve)
+    from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import (
+        fused_ip, make_fused_ip_plain, make_fused_ip_solver)
+    from optimization_dynamics_tpu_torch.solver.gradient_bundle import (
+        bundle_inputs, make_gradient_bundle)
+    from optimization_dynamics_tpu_torch.solver.ilqr import rollout
+    from optimization_dynamics_tpu_torch.solver.interior_point import (
+        IPOptions)
+    from optimization_dynamics_tpu_torch.utils.measure import scalar_solve
+
+    f64, cpu = torch.float64, torch.device("cpu")
+    width = (ex.T - 1) * (ex.GB_SAMPLES + 1)
+    dyn_h = make_implicit_dynamics(pp.model(), cpu, f64)
+    draws = make_gradient_bundle(dyn_h, ex.GB_SAMPLES, ex.GB_EPS).sample(
+        np.random.default_rng(0), (ex.T - 1,))
+    prob, x0, us0, opts = ex.build_problem("translate", True, device=device,
+                                           dtype=f64, gb_draws=draws)
+    prob_h = ex.build_problem("translate", True, device=cpu, dtype=f64,
+                              gb_draws=draws)[0]
+    xs = rollout(prob, x0, us0)[:-1]
+    ts = torch.arange(ex.T - 1)
+
+    # K1n at the sweep's lanes: the bundle's eval solves, f64 at the
+    # scalar path's IP options (the sweep's) and f32 at the push deploy's
+    # accelerator options (phase 7's f32 checks)
+    model, aux = pp.model(), pp.PlanarPushAux(h=ex.H)
+    xs_all, us_all, _ = bundle_inputs(
+        xs, us0, tuple(d.to(device) for d in draws), pp.NQ)
+    q1 = xs_all[:, pp.NQ:]
+    th64 = model.theta_fn(xs_all[:, :pp.NQ], q1, us_all, aux)
+    z064 = model.init_z(q1)
+    out, counts = {}, {}
+    for name, dtype, o in (
+            ("f64", f64, IPOptions(r_tol=1e-8, kappa_tol=1e-4,
+                                   kappa_init_min=1e-2)),
+            ("f32", torch.float32, IPOptions(**ex.DEPLOY_IP_ACCEL))):
+        z0, th = z064.to(dtype), th64.to(dtype)
+        kern = make_fused_ip_solver(model, o, device, dtype)
+        plain = make_fused_ip_plain(model, o, device, dtype)
+        sp, trials = _with_trials(lambda: plain(z0, th))
+        groups = fused_ip.widths["group", width]
+        sk = kern(z0, th)
+        torch.cuda.synchronize()
+        _check(fused_ip.widths["group", width] == groups + 1,
+               "K1n %s at %d lanes: not on the group kernel" % (name, width))
+        a = _k1_agreement(sk, sp, dtype, nq=pp.NQ, f32_tol=2e-4,
+                          min_same_iters=None)
+        a["mean_iters"] = float(sk.iterations.float().mean())
+        a["ms"] = cuda_ms(lambda: kern(z0, th))
+        a["ms_device"] = device_ms(lambda: kern(z0, th))
+        a["plain_ms"] = cuda_ms(lambda: plain(z0, th), reps=1)
+        a.update(_bound(_nbytes(z0, th, sk.z) + 4 * z0.shape[0] * 4,
+                        _ip_flops(model, z0, th, int(sk.iterations.sum()),
+                                  trials, z0.shape[0])))
+        a["bound_share"] = a["bound_ms"] / a["ms"]
+        out["k1n_group_cold_%d_%s" % (width, name)] = a
+        counts[name] = sk.iterations.cpu()
+
+    # the bundle sweep, card against a CPU copy: the IP iteration counts
+    # first (the f64 solves above; the CPU copy's from K1n's plain version
+    # on the CPU), then y, fx and fu at the timesteps whose every solve
+    # took the same count
+    plain_h = make_fused_ip_plain(model, IPOptions(
+        r_tol=1e-8, kappa_tol=1e-4, kappa_init_min=1e-2), cpu, f64)
+    same = (counts["f64"] == plain_h(z064.cpu(), th64.cpu()).iterations)
+    got = prob.dynamics_jac_batched(ts.to(device), xs, us0)
+    ref = prob_h.dynamics_jac_batched(ts, xs.cpu(), us0.cpu())
+    steps = same.reshape(ex.T - 1, ex.GB_SAMPLES + 1).all(1)
+    _check(float(same.float().mean()) >= 0.995 and bool(steps.any()),
+           "bundle sweep card vs CPU: IP counts agree on %.4f of lanes"
+           % float(same.float().mean()))
+    dy = float((got[0].cpu() - ref[0])[steps].abs().max())
+    djac = max(float((g.cpu() - r)[steps].abs().max())
+               for g, r in zip(got[1:], ref[1:]))
+    _check(dy <= 1e-12 and djac <= 1e-8, "bundle sweep f64 card vs CPU: "
+           "max|dy| %.3e, max|dJ| %.3e" % (dy, djac))
+    out["sweep_f64_vs_cpu"] = dict(
+        lanes=width, same_iters=float(same.float().mean()),
+        steps_compared=int(steps.sum()), max_dy=dy, max_djac=djac)
+
+    # the main path: the scalar translate solve with the bundle's
+    # Jacobians, K1n's group at width 1 (rollout steps) and 1,275 (one
+    # launch a derivative sweep), no IFT solve
+    _zero_counts(fused_ip)
+    _zero_counts(batched_solve)
+    res, wall, by_width = scalar_solve(prob, x0, us0, opts)
+    k1n = dict(fused_ip.widths)
+    obj = float(res.objective)
+    umax = float(res.us.abs().max())
+    _check(bool(res.converged), "bundle push: not converged")
+    _check(abs(float(res.xs[-1][5]) - 1.0) < 0.01,
+           "bundle push: block x %.4f" % float(res.xs[-1][5]))
+    _check(umax <= ex.U_LIM + 1e-6, "bundle push: |u| %.6f" % umax)
+    _check(fused_ip.launches == fused_ip.tile_launches
+           and k1n.get(("group", 1), 0) > 0
+           and k1n.get(("group", width), 0) == int(res.iterations),
+           "bundle push: K1n launches %s, %d inner iterations"
+           % (k1n, int(res.iterations)))
+    _check(batched_solve.launches == 0, "bundle push: K2 launched")
+    out["solve"] = dict(
+        wall_s=wall, converged=True, objective=obj, golden=18.709,
+        iterations=int(res.iterations), al_iterations=int(res.al_iterations),
+        constraint_violation=float(res.constraint_violation),
+        final_block_pose=res.xs[-1][5:8].cpu().numpy().tolist(),
+        max_abs_u=umax, launches_gb=fused_ip.tile_launches,
+        launches_by_width=by_width)
+    return out
+
+
+def phase_direct(device) -> dict:
+    """The direct-transcription hopper gait on the card to the reference
+    test's checks, and one Gauss-Newton gradient and Hessian card against
+    the CPU; see the module docstring."""
+    import torch
+
+    from optimization_dynamics_tpu_torch.examples.comparisons import (
+        hopper_direct as hd)
+    from optimization_dynamics_tpu_torch.solver.direct import (
+        make_al, solve_direct)
+
+    prob, w0, opts = hd.build_problem(device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve_direct(prob, w0, opts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    w = res.w.reshape(hd.T - 1, hd.NW_STAGE).cpu().numpy()
+    travel, slack = float(w[-1, 0]), float(np.sum(w[:, 20]))
+    _check(res.converged, "hopper direct: not converged (violation %.3e)"
+           % res.constraint_violation)
+    _check(travel >= 0.5 - 1e-2, "hopper direct: travel %.4f" % travel)
+    _check(slack < 1e-2, "hopper direct: slack sum %.3e" % slack)
+    out = dict(wall_s=wall, converged=True, objective=float(res.objective),
+               constraint_violation=res.constraint_violation,
+               iterations=res.iterations, al_iterations=res.al_iterations,
+               travel=travel, slack_sum=slack,
+               final_config=w[-1, 0:4].tolist())
+
+    # one Gauss-Newton (g, H) at a perturbed w with multipliers from a
+    # numpy seed (some inequality rows active), card against the CPU
+    rng = np.random.default_rng(100)
+    w1 = w0.cpu().numpy() + 0.01 * rng.standard_normal(prob.n)
+    lam_eq = rng.standard_normal(163)
+    lam_in = np.maximum(rng.standard_normal(621), 0.0)
+    gh = []
+    for dev in (device, torch.device("cpu")):
+        p = hd.build_problem(device=dev)[0]
+        t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+        g, H = make_al(p)[1](t(w1), t(lam_eq), t(lam_in), 10.0)
+        gh.append((g.cpu(), H.cpu()))
+    (g_c, H_c), (g_h, H_h) = gh
+    dg = float((g_c - g_h).abs().max())
+    dH = float((H_c - H_h).abs().max())
+    _check(dg <= 1e-9 and dH <= 1e-9, "hopper direct GN card vs CPU: "
+           "max|dg| %.3e, max|dH| %.3e" % (dg, dH))
+    out["gn_f64_vs_cpu"] = dict(max_dg=dg, max_dH=dH,
+                                max_abs_H=float(H_h.abs().max()))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2297,6 +2501,11 @@ def main() -> int:
           flush=True)
     sc = phase_scalar(device)
     print("# phase 18 scalar path: %s" % json.dumps(sc), flush=True)
+    gb = phase_gb(device)
+    print("# phase 19 gradient bundle: %s" % json.dumps(gb), flush=True)
+    di = phase_direct(device)
+    print("# phase 20 hopper direct transcription: %s" % json.dumps(di),
+          flush=True)
 
     src = "optimization_dynamics_tpu_torch/ops/kernels/csrc/"
     tpu = "optimization_dynamics_tpu/ops/pallas/"
@@ -2308,6 +2517,7 @@ def main() -> int:
     k3d, k3w = k3["f32"]["deploy_512"], k3["f32"]["deploy_25600"]
     k1nt, k2p = k1n["f32"]["thread_warm_6400"], k1n["f32"]["k2_ift_6400"]
     k1ng = k1n["f32"]["group_cold_512"]
+    k1gb = gb["k1n_group_cold_1275_f32"]
 
     def k2_entry(name, route, routes, plain_ms, bound, library_ms):
         """K2's tile or per-thread kernel, timed in one call (``ms``) and
@@ -2400,7 +2610,14 @@ def main() -> int:
              ms=k1ng["ms"], plain_ms=k1n["f32"]["cold_512"]["plain_ms"],
              bound_ms=k1ng["bound_ms"], bound_by=k1ng["bound_by"],
              library_ms=None,
-             ms_warm_6400=k1n["f32"]["group_warm_6400"]["ms"]),
+             ms_warm_6400=k1n["f32"]["group_warm_6400"]["ms"],
+             launches_gb=gb["solve"]["launches_gb"],
+             ms_cold_1275=k1gb["ms"], ms_device_cold_1275=k1gb["ms_device"],
+             bound_ms_cold_1275=k1gb["bound_ms"],
+             bound_by_cold_1275=k1gb["bound_by"],
+             ms_cold_1275_f64=gb["k1n_group_cold_1275_f64"]["ms"],
+             ms_device_cold_1275_f64=gb["k1n_group_cold_1275_f64"][
+                 "ms_device"]),
         dict(name="batched_solve_n35_k13", route="cuda",
              source=src + "batched_solve.cu",
              replaces=tpu + "batched_solve.py:119",

@@ -3,8 +3,13 @@
 Port of ``optimization_dynamics_tpu/examples/planar_push.py``: h=0.1,
 T=26, kappa_eval=1e-4, kappa_grad=1e-2, control box |u| <= 5 (four
 inequality rows a stage), terminal equality on the block pose of both
-configurations, max_iter=10 / max_al_iter=10. The gradient-bundle option
-of the reference is not ported (``gradient_bundle=True`` raises).
+configurations, max_iter=10 / max_al_iter=10. ``gradient_bundle=True``
+swaps the IFT Jacobians for the sampled gradient bundle
+(``solver/gradient_bundle.py``; N=50, eps=1e-4, the reference's): each
+timestep's draws are fixed once, from a numpy seed, or passed in. A
+bundle derivative sweep is one IP solve per lane and sample, (T-1)(N+1)
+= 1,275 cold eval solves in one launch of K1n's group kernel on the
+card.
 
 ``build_deploy_problem`` is the deploy tier, solved lane-batched by
 ``solver.ilqr_segmented.make_segmented_solver``: on a CUDA device every
@@ -29,7 +34,9 @@ AL-iLQR ``solver.ilqr.solve`` in float64, line-search rollouts
 warm-started step by step from the accepted trajectory's solver
 variables. On the card each rollout step runs K1n at width 1 and each
 derivative sweep K1n at width T-1 = 25 with its IFT solves in K2 at (35,
-13).
+13). With ``--gradient-bundle`` it solves the translate problem with the
+gradient bundle's Jacobians instead, the draws from ``--seed`` or from
+``--gb-draws FILE.npz`` (arrays ``coords`` and ``mags``, (T-1, N)).
 """
 
 from __future__ import annotations
@@ -44,6 +51,9 @@ import torch
 
 from optimization_dynamics_tpu_torch.dynamics import make_implicit_dynamics
 from optimization_dynamics_tpu_torch.models import planar_push as pp
+from optimization_dynamics_tpu_torch.solver.gradient_bundle import (
+    make_gradient_bundle,
+)
 from optimization_dynamics_tpu_torch.solver.ilqr import (
     ILQROptions,
     ILQRProblem,
@@ -68,18 +78,22 @@ DEPLOY_IP_ACCEL = dict(r_tol=3.0e-5, kappa_tol=1.0e-3, max_iter=40, max_ls=8)
 DEPLOY_IP_CPU = dict(r_tol=1.0e-8, kappa_tol=1.0e-3, max_iter=40, max_ls=8)
 U_LIM = 5.0
 TERMINAL_SEL = (0, 1, 2, 5, 6, 7)   # block pose of both configurations
+GB_SAMPLES = 50                     # the gradient bundle's, reference :79
+GB_EPS = 1.0e-4
 
 
 def build_problem(mode: str = "rotate", gradient_bundle: bool = False,
-                  device="cuda", dtype=torch.float64):
+                  device="cuda", dtype=torch.float64, gb_seed: int = 0,
+                  gb_draws=None):
     """Returns (prob, x0, us_init, opts). ``mode``: "translate" | "rotate".
     The problem carries the scalar dynamics for ``solver.ilqr.solve``
     (steps warm-started from the accepted trajectory's solver variables
-    at the same timestep) and the lane-batched ones (cold solves)."""
-    if gradient_bundle:
-        raise NotImplementedError(
-            "planar_push: the gradient bundle (solver/gradient_bundle.py) "
-            "is not ported")
+    at the same timestep) and the lane-batched ones (cold solves).
+
+    ``gradient_bundle``: the Jacobians come from the gradient bundle,
+    with each timestep's draws ``(coords, mags)`` (T-1, N) either
+    ``gb_draws`` (arrays or tensors) or drawn once from numpy seed
+    ``gb_seed``."""
     device = torch.device(device)
     aux = pp.PlanarPushAux(h=H)
     dyn = make_implicit_dynamics(
@@ -120,6 +134,26 @@ def build_problem(mode: str = "rotate", gradient_bundle: bool = False,
     def terminal_con(x):
         return (x - xT)[sel]
 
+    if gradient_bundle:
+        gb = make_gradient_bundle(dyn, n_samples=GB_SAMPLES, eps=GB_EPS)
+        if gb_draws is None:
+            gb_draws = gb.sample(np.random.default_rng(gb_seed), (T - 1,))
+        coords = torch.as_tensor(gb_draws[0], dtype=torch.int64,
+                                 device=device)
+        mags = torch.as_tensor(gb_draws[1], dtype=dtype, device=device)
+
+        def dynamics_jac(t_, x, u):
+            return gb.gb_jac(x, u, aux, (coords[t_], mags[t_]))
+
+        def dynamics_jac_batched(ts, xs, us):
+            return gb.gb_jac_batched(xs, us, aux, (coords[ts], mags[ts]))
+    else:
+        def dynamics_jac(t_, x, u):
+            return dyn.step_jac(x, u, aux)
+
+        def dynamics_jac_batched(ts, xs, us):
+            return dyn.step_jac_batched(xs, us, aux)
+
     prob = ILQRProblem(
         T=T, nx=NX, nu=NU, ncon=2 * NU, nconT=len(TERMINAL_SEL),
         stage_cost=stage_cost,
@@ -129,12 +163,11 @@ def build_problem(mode: str = "rotate", gradient_bundle: bool = False,
         ineq_mask=torch.ones((T - 1, 2 * NU), dtype=torch.bool,
                              device=device),
         dynamics=lambda t_, x, u: dyn.step(x, u, aux),
-        dynamics_jac=lambda t_, x, u: dyn.step_jac(x, u, aux),
+        dynamics_jac=dynamics_jac,
         dynamics_ws=lambda t_, x, u, z: dyn.step_carry(z, x, u, aux),
         ws_init=lambda t_, x, u: dyn.carry_init(x),
         dynamics_batched=lambda t_, xs, us: dyn.step_batched(xs, us, aux),
-        dynamics_jac_batched=lambda ts, xs, us: dyn.step_jac_batched(
-            xs, us, aux),
+        dynamics_jac_batched=dynamics_jac_batched,
     )
 
     opts = ILQROptions(
@@ -211,19 +244,25 @@ def deploy_x0s(x0: torch.Tensor, B: int, seed: int = 0) -> torch.Tensor:
                                       device=x0.device)
 
 
-def run(mode: str = "rotate", device="cuda", dtype=torch.float64):
+def run(mode: str = "rotate", gradient_bundle: bool = False, device="cuda",
+        dtype=torch.float64):
     """The reference's ``run``: ``build_problem`` solved by the scalar
     ``solve``. Returns ``(prob, result)``."""
-    prob, x0, us_init, opts = build_problem(mode, device=device, dtype=dtype)
+    prob, x0, us_init, opts = build_problem(mode, gradient_bundle,
+                                            device=device, dtype=dtype)
     return prob, solve(prob, x0, us_init, opts)
 
 
-def main_scalar(modes, device, dtype=torch.float64):
+def main_scalar(modes, device, dtype=torch.float64,
+                gradient_bundle: bool = False, gb_seed: int = 0,
+                gb_draws=None):
     """The reference's ``main``: each mode by the scalar ``solve``,
     printed with its wall and its K1 and K2 launches. Returns the last
     result."""
     for mode in modes:
-        prob, x0, us0, opts = build_problem(mode, device=device, dtype=dtype)
+        prob, x0, us0, opts = build_problem(
+            mode, gradient_bundle, device=device, dtype=dtype,
+            gb_seed=gb_seed, gb_draws=gb_draws)
         res, wall, launches = scalar_solve(prob, x0, us0, opts)
         print(f"[{mode}] converged: {bool(res.converged)}"
               f" obj: {float(res.objective):.4f}"
@@ -232,8 +271,9 @@ def main_scalar(modes, device, dtype=torch.float64):
               f" vio: {float(res.constraint_violation):.2e}")
         print("  final block pose:",
               np.round(res.xs[-1][5:8].cpu().numpy(), 4))
-        print("[%s] device=%s dtype=%s wall %.3f s launches %s"
-              % (mode, device, dtype, wall, launches))
+        print("[%s] device=%s dtype=%s gradient_bundle=%s wall %.3f s "
+              "launches %s" % (mode, device, dtype, gradient_bundle, wall,
+                               launches))
     return res
 
 
@@ -251,8 +291,21 @@ def main(argv=None):
     ap.add_argument("--dtype", choices=("f32", "f64"), default=None,
                     help="default: f32 on a CUDA device with --deploy, "
                          "else f64")
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--gradient-bundle", action="store_true",
+                    help="solve the translate problem with the gradient "
+                         "bundle's Jacobians (scalar solve only)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="numpy seed of the deploy scenarios or of the "
+                         "gradient bundle's draws")
+    ap.add_argument("--gb-draws", metavar="FILE.npz",
+                    help="with --gradient-bundle: the draws, arrays "
+                         "coords and mags (T-1, N) (such as the "
+                         "reference's jax.random ones, saved on the CPU)")
     args = ap.parse_args(argv)
+    if args.gradient_bundle and (args.deploy or args.mode == "rotate"):
+        ap.error("--gradient-bundle solves the scalar translate problem")
+    if args.gb_draws and not args.gradient_bundle:
+        ap.error("--gb-draws needs --gradient-bundle")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("planar_push: no CUDA device; pass --device cpu to "
@@ -260,6 +313,14 @@ def main(argv=None):
     dtype = {None: None, "f32": torch.float32,
              "f64": torch.float64}[args.dtype]
 
+    if args.gradient_bundle:
+        draws = None
+        if args.gb_draws:
+            with np.load(args.gb_draws) as f:
+                draws = (f["coords"], f["mags"])
+        return main_scalar(("translate",), device, dtype or torch.float64,
+                           gradient_bundle=True, gb_seed=args.seed,
+                           gb_draws=draws)
     if not args.deploy:
         return main_scalar((args.mode,) if args.mode
                            else ("translate", "rotate"), device,

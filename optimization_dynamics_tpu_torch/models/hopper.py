@@ -25,7 +25,9 @@ The solver's ``batched_jacobian`` differentiates the residual on nz x B
 replicas in one reverse pass; nested autodiff inside it would multiply
 the derivative sweep's host dispatch, hence the closed form. A test
 holds it against ``torch.func`` derivatives of the same Lagrangian and
-against the reference.
+against the reference. The direct transcription
+(``examples/comparisons/hopper_direct.py``) differentiates
+``lagrangian`` itself, as the reference's does.
 
 Variable layout:
     z = [q2 (0:4), gamma (4:8), s_gamma (8:12), psi (12:14), b (14:16),
@@ -119,6 +121,21 @@ def dynamics_bias(p: HopperParams, q, v):
         mf * g * r * s - dk_th,
         -mf * g * c - dk_r,
     ], dim=-1)
+
+
+def lagrangian(p: HopperParams, q, v):
+    """``L = K - V`` (...), the reference's: the foot's velocity is the
+    JVP of ``kinematics_foot`` along v. ``mass_matrix`` and
+    ``dynamics_bias`` are its derivatives in closed form; the direct
+    transcription (``examples/comparisons/hopper_direct.py``)
+    differentiates it."""
+    pf, pf_dot = torch.func.jvp(lambda q: kinematics_foot(p, q), (q,), (v,))
+    ke = (0.5 * p.mass_body * (v[..., 0] ** 2 + v[..., 1] ** 2)
+          + 0.5 * p.inertia_body * v[..., 2] ** 2
+          + 0.5 * p.mass_foot * torch.sum(pf_dot * pf_dot, dim=-1))
+    pe = (p.mass_body * p.gravity * q[..., 1]
+          + p.mass_foot * p.gravity * pf[..., 1])
+    return ke - pe
 
 
 def signed_distance(p: HopperParams, q):

@@ -25,13 +25,14 @@ from optimization_dynamics_tpu_torch.models.planar_push import (
     PlanarPushParams,
 )
 from optimization_dynamics_tpu_torch.models.rocket import RocketParams
+from optimization_dynamics_tpu_torch.solver.direct import DirectOptions
 from optimization_dynamics_tpu_torch.solver.ilqr import ILQROptions
 from optimization_dynamics_tpu_torch.solver.interior_point import IPOptions
 
 __all__ = ["cartpole_params", "cartpole_aux", "planar_push_params",
            "planar_push_aux", "acrobot_params", "acrobot_aux",
            "hopper_params", "hopper_aux", "rocket_params", "ip_options",
-           "ilqr_options", "al_state"]
+           "ilqr_options", "direct_options", "al_state"]
 
 
 def cartpole_params(p) -> CartpoleParams:
@@ -129,6 +130,12 @@ def ilqr_options(o) -> ILQROptions:
     ``parallel_riccati``, ``parallel_linesearch`` and ``verbose`` carry
     across."""
     return _options(o, ILQROptions, {"pallas_riccati": "riccati_kernel"})
+
+
+def direct_options(o) -> DirectOptions:
+    """The port's ``DirectOptions`` from the reference's (the same
+    fields)."""
+    return _options(o, DirectOptions)
 
 
 def al_state(res):

@@ -7,7 +7,11 @@ holds it to the checks and the golden of the reference's
 where that file pins no test (push rotate, the acrobot's two modes,
 cartpole frictionless). The acrobot and the rocket start from the
 reference's ``jax.random`` initial controls, whose solves the goldens
-record (the port's ``build_problem`` draws them from numpy). All slow:
+record (the port's ``build_problem`` draws them from numpy); push with
+the gradient bundle takes the reference's draws and is also held to the
+reference's solve; the direct-transcription hopper gait
+(``examples/comparisons``) to the reference's
+``tests/test_comparisons.py`` checks. All slow:
 the scalar path solves one IP problem at a time, tens of minutes each on
 the CPU.
 """
@@ -120,3 +124,65 @@ def test_hopper_gait(gait):
     assert np.max(np.abs(np.concatenate(
         [x[1:4] - theta[1:4], x[5:8] - theta[5:8]]))) < 1e-2  # periodicity
     _check_golden("hopper_gait%d_objective" % gait, float(res.objective))
+
+
+def _reference_gb_draws(T, n, n_in, eps):
+    """The draws of the reference push problem's gradient bundle, per
+    timestep t: ``fold_in(PRNGKey(0), t)`` split into ``randint`` and
+    ``eps * normal``, as its ``gb_jac`` draws them. Returns ``(coords,
+    mags)``, (T-1, n) each."""
+    import jax
+    import jax.numpy as jnp
+
+    coords, mags = [], []
+    for t in range(T - 1):
+        k1, k2 = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(0),
+                                                     t))
+        coords.append(np.asarray(jax.random.randint(k1, (n,), 0, n_in)))
+        mags.append(np.asarray(eps * jax.random.normal(k2, (n,),
+                                                       jnp.float64)))
+    return np.stack(coords), np.stack(mags)
+
+
+@pytest.mark.slow
+def test_planar_push_gradient_bundle():
+    """The translate problem with the gradient bundle's Jacobians from the
+    reference's draws: converged, the block at x ~ 1, the controls in
+    their box to the AL's constraint tolerance (this solve ends 3e-5 past
+    it), the golden within 5%, and the reference's own bundle solve
+    (objective rtol 1e-6, controls atol 1e-6)."""
+    import jax
+
+    from optimization_dynamics_tpu.examples import planar_push as jex
+    from optimization_dynamics_tpu.solver.ilqr import solve as jax_solve
+    from optimization_dynamics_tpu_torch.examples import planar_push as ex
+    from optimization_dynamics_tpu_torch.solver.ilqr import solve
+    draws = _reference_gb_draws(ex.T, ex.GB_SAMPLES, ex.NX + ex.NU, ex.GB_EPS)
+    prob, x0, us0, opts = ex.build_problem("translate", gradient_bundle=True,
+                                           device="cpu", gb_draws=draws)
+    res = solve(prob, x0, us0, opts)
+    assert bool(res.converged)
+    assert abs(float(res.xs[-1][5]) - 1.0) < 0.01
+    assert float(res.us.abs().max()) <= ex.U_LIM + opts.con_tol
+    _check_golden("planar_push_gb_objective", float(res.objective))
+    jprob, jx0, jus0, jopts = jex.build_problem("translate",
+                                                gradient_bundle=True)
+    ref = jax.jit(lambda x, u: jax_solve(jprob, x, u, jopts))(jx0, jus0)
+    np.testing.assert_allclose(float(res.objective), float(ref.objective),
+                               rtol=1e-6)
+    np.testing.assert_allclose(res.us.numpy(), np.asarray(ref.us),
+                               atol=1e-6)
+
+
+@pytest.mark.slow
+def test_hopper_direct_transcription_hops():
+    """The reference test's checks on the port's direct-transcription
+    hopper gait: converged, travel >= 0.5 - 1e-2, complementarity slack
+    sum < 1e-2."""
+    from optimization_dynamics_tpu_torch.examples.comparisons import (
+        hopper_direct as ex)
+    _, res = ex.run(device="cpu")
+    assert res.converged
+    w = res.w.reshape(ex.T - 1, ex.NW_STAGE).numpy()
+    assert w[-1, 0] >= 0.5 - 1e-2
+    assert np.sum(w[:, 20]) < 1e-2

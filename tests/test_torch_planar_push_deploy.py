@@ -35,7 +35,12 @@ from optimization_dynamics_tpu.solver.ilqr_batched import (
 from optimization_dynamics_tpu.solver.ilqr_segmented import (
     make_segmented_solver as jax_segmented_solver,
 )
+from optimization_dynamics_tpu_torch.dynamics import make_implicit_dynamics
 from optimization_dynamics_tpu_torch.examples import planar_push as tex
+from optimization_dynamics_tpu_torch.models import planar_push as tpp
+from optimization_dynamics_tpu_torch.solver.gradient_bundle import (
+    make_gradient_bundle,
+)
 from optimization_dynamics_tpu_torch.solver.ilqr_batched import make_phases
 from optimization_dynamics_tpu_torch.solver.ilqr_segmented import (
     make_segmented_solver,
@@ -157,7 +162,8 @@ def test_push_deploy_slice_matches_jax():
 def test_deploy_scenarios_and_unported_options():
     """deploy_x0s translates block and pusher of both configurations by
     one offset a lane, as the reference bench builds them; the gradient
-    bundle is not ported and raises."""
+    bundle option builds the problem with the bundle's Jacobians, each
+    timestep's draws from ``gb_seed``."""
     x0 = torch.zeros(10, dtype=F64)
     x0s = tex.deploy_x0s(x0, 3, seed=4)
     shift = (x0s - x0).numpy()
@@ -168,8 +174,18 @@ def test_deploy_scenarios_and_unported_options():
     assert (shift[:, [2, 7]] == 0).all()
     delta = 0.02 * np.random.default_rng(4).standard_normal((3, 2))
     np.testing.assert_array_equal(shift[:, :2], delta)
-    with pytest.raises(NotImplementedError):
-        tex.build_problem("translate", gradient_bundle=True, device="cpu")
+    prob = tex.build_problem("translate", gradient_bundle=True,
+                             device="cpu", gb_seed=3)[0]
+    dyn = make_implicit_dynamics(tpp.model(), "cpu", F64, r_tol=1e-8,
+                                 kappa_eval_tol=1e-4, kappa_grad_tol=1e-2)
+    gb = make_gradient_bundle(dyn, tex.GB_SAMPLES, tex.GB_EPS)
+    coords, mags = gb.sample(np.random.default_rng(3), (tex.T - 1,))
+    q = torch.tensor([0.0, 0.0, 0.0, -tpp.R_DIM - 1e-8, 0.0], dtype=F64)
+    x, u = torch.cat([q, q]), torch.tensor([1.0, 0.0], dtype=F64)
+    got = prob.dynamics_jac(2, x, u)
+    ref = gb.gb_jac(x, u, tpp.PlanarPushAux(h=tex.H), (coords[2], mags[2]))
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), r.numpy())
 
 
 @pytest.mark.slow
