@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``optimization_dynamics_tpu_torch/ops/
-kernels/csrc`` and runs nineteen phases, each printing one ``#`` line:
+kernels/csrc`` and runs phases 0-21, each printing one ``#`` line:
 
 0. card: ``nvidia-smi`` name and power limit, torch and CUDA versions,
    kernel build time in all and per source, and what ``ptxas`` reported
@@ -240,7 +240,33 @@ kernels/csrc`` and runs nineteen phases, each printing one ``#`` line:
    gradient and Hessian at a perturbed w card against the CPU within
    1e-9. No kernel of the port runs there: its dense solve is
    ``torch.linalg.solve``, as the reference's is outside any Pallas
-   kernel.
+   kernel;
+21. the scenario sweep (``examples/sweep.py``), a ``# sweep`` line as
+   each part ends: ``scenario_mesh()`` lists the visible cards, and
+   ``sharded_map`` of the acrobot's lane-batched step on 16 lanes
+   (float64, numpy seed 210) equals the unsharded call bit for bit; the
+   f32 deploy sweep (``run_sweep_deploy(256, shard=128)``: the deploy
+   problem, the (15, 15, 25, 25, 30) schedule, ``al_stall_rounds=2``,
+   nothing cut) cold into a temporary checkpoint directory, one call a
+   shard (``run_sweep_deploy(128 (s + 1))``: the shards before resume
+   from disk), the counts cleared before each call and read after it:
+   each shard's converged count, wall, converged solves/s, IP solves, its
+   non-finite fields and K1 and K2 launches by kernel and width (both
+   launched on every shard, the trajectory finite and of its shape); the
+   whole call on that directory again, which must solve nothing and
+   launch nothing; the first shard again into a second directory with a
+   ``PhaseTimer`` in the executor (its barriers order the work and change
+   no operation), its checkpoint compared with the first's array by
+   array (bit-identical, or the differences reported, not failed), and
+   the timer's phase table with the host residual against its wall; the
+   warm arm (``warm=True``), whose first shard starts cold as the cold
+   arm's does, so it resumes from that checkpoint and solves the second
+   shard warm from it, beside the cold arm; the friction grid
+   ``run_sweep(1, shard_size=1)`` uncut (friction 0.05, the reference's
+   T=51 and budgets; K1 at width 1), which must converge without a retry
+   with every floating field finite and its objective within 1e-6 of the
+   reference's (``GRID_REFERENCE``); and ``benchmark`` of one K1 call at
+   128 cold lanes (float32, numpy seed 211).
 
 The kernels' designs are in their wrappers' docstrings
 (``ops/kernels/*.py``). K1 (cartpole, the rocket's projection, the
@@ -331,7 +357,8 @@ kernel; ``batched_solve_n10_k1`` and ``batched_solve_n20_k1``, whose
 Newton solves now run inside K1, keep their entries with their launches
 on phases 15 and 13, 0); ``fused_ip``, ``fused_ip_tile``,
 ``batched_solve`` and ``batched_solve_tile`` carry the scalar path's
-launches (phase 18) as ``launches_scalar``;
+launches (phase 18) as ``launches_scalar`` and the cold deploy sweep's
+(phase 21) as ``launches_sweep``;
 ``fused_ip_rocket_projection`` and
 ``fused_ip_hopper`` are K1's per-thread kernels on those functors, timed
 at the sweeps' widths (phases 16, 17: 15,360 cold projections, 5,120
@@ -2429,6 +2456,241 @@ def phase_direct(device) -> dict:
     return out
 
 
+def _launches_by_width() -> dict:
+    """K1's and K2's launches since the counts were last cleared, by
+    kernel and width (K2 by n, k, kernel and width)."""
+    from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
+        batched_solve)
+    from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import fused_ip
+
+    key = lambda k: " ".join(str(v) for v in k)
+    return {"fused_ip": {key(k): n for k, n in sorted(fused_ip.widths.items())},
+            "batched_solve": {key(k): n for k, n in
+                              sorted(batched_solve.shape_widths.items())}}
+
+
+def _clear_launches() -> None:
+    from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
+        batched_solve)
+    from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import fused_ip
+
+    _zero_counts(fused_ip)
+    _zero_counts(batched_solve)
+    batched_solve.shape_widths.clear()
+
+
+def _same_shards(dir_a: str, dir_b: str, n: int) -> dict:
+    """Whether two sweeps' checkpoints hold bit-identical arrays, and
+    where not, the largest difference by field."""
+    from optimization_dynamics_tpu_torch.utils.checkpoint import load_result
+
+    diffs = {}
+    for s in range(n):
+        a, _ = load_result(os.path.join(dir_a, "shard_%05d.npz" % s))
+        b, _ = load_result(os.path.join(dir_b, "shard_%05d.npz" % s))
+        _check(sorted(a) == sorted(b), "determinism: fields differ")
+        for k in a:
+            if not np.array_equal(a[k], b[k], equal_nan=True):
+                d = np.abs(a[k].astype(np.float64) - b[k].astype(np.float64))
+                diffs["%d %s" % (s, k)] = float(np.nanmax(d))
+    return dict(bit_identical=not diffs, max_abs_diff_by_field=diffs)
+
+
+# the reference's solve of the friction grid's scenario of phase 21
+# (friction 0.05, x0 = 0.02 N(0, 1) from numpy seed 0): the JAX
+# package's jit(vmap(solve_one)) in float64 on the CPU
+# (``python -m tools.sweep_lanes reference``)
+GRID_REFERENCE = {"objective": 8.14967736205116, "iterations": 265,
+                  "al_iterations": 5}
+
+
+def phase_sweep(device) -> dict:
+    """The scenario sweep on the card (``examples/sweep.py``); see the
+    module docstring. Prints a ``# sweep`` line as each part ends."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from optimization_dynamics_tpu_torch.dynamics import (
+        make_implicit_dynamics)
+    from optimization_dynamics_tpu_torch.examples import cartpole as ex
+    from optimization_dynamics_tpu_torch.examples import sweep as sw
+    from optimization_dynamics_tpu_torch.models import acrobot as ac
+    from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
+        batched_solve)
+    from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import (
+        fused_ip, make_fused_ip_solver)
+    from optimization_dynamics_tpu_torch.parallel.mesh import (
+        scenario_mesh, sharded_map)
+    from optimization_dynamics_tpu_torch.solver.ilqr import ILQRResult
+    from optimization_dynamics_tpu_torch.utils.benchmark import benchmark
+    from optimization_dynamics_tpu_torch.utils.checkpoint import load_result
+    from optimization_dynamics_tpu_torch.utils.debug import check_finite
+    from optimization_dynamics_tpu_torch.utils.profiling import PhaseTimer
+
+    def say(part, obj):
+        print("# sweep %s: %s" % (part, json.dumps(obj)), flush=True)
+
+    out = {}
+    # the mesh: the visible cards; the acrobot step sharded over it bit
+    # for bit the unsharded call
+    mesh = scenario_mesh()
+    _check(len(mesh) == torch.cuda.device_count() >= 1
+           and mesh[0] == torch.device("cuda", 0),
+           "scenario_mesh: %s" % mesh)
+    dyn = make_implicit_dynamics(ac.impact_model(), device, torch.float64)
+    aux = ac.AcrobotAux(h=torch.tensor(0.05, dtype=torch.float64,
+                                       device=device))
+    rng = np.random.default_rng(210)
+    xs = torch.as_tensor(0.3 * rng.standard_normal((16, 4)), device=device)
+    us = torch.as_tensor(0.1 * rng.standard_normal((16, 1)), device=device)
+    step = lambda x, u: dyn.step_batched(x, u, aux)
+    ys = sharded_map(step, mesh)(xs, us)
+    _check(torch.equal(ys, step(xs, us)),
+           "sharded_map(step_batched) differs from the unsharded call")
+    out["mesh"] = dict(devices=[str(d) for d in mesh], lanes=16,
+                       sharded_equal=True)
+    say("mesh", out["mesh"])
+
+    n, shard = 256, 128
+    tmp = tempfile.TemporaryDirectory()
+    dirs = {a: os.path.join(tmp.name, a) for a in ("cold", "again", "warm",
+                                                    "grid")}
+
+    def arm(name, n_lanes, **kw):
+        """The sweep into ``dirs[name]`` one call a shard, each call
+        ``n_lanes`` cut to the shards up to it: the shards before resume
+        from disk (a warm arm seeds from the last of them), so each call
+        solves one shard, and its launches are read just after it."""
+        shards, st = [], []
+        t0 = time.perf_counter()
+        for s in range(n_lanes // shard):
+            if os.path.exists(os.path.join(dirs[name], "shard_%05d.npz" % s)):
+                continue
+            _clear_launches()
+            torch.cuda.synchronize()
+            got = sw.run_sweep_deploy(shard * (s + 1), shard=shard,
+                                      out_dir=dirs[name], verbose=False,
+                                      device=device, **kw)
+            launches = _launches_by_width()
+            _check(len(got) == 1, "deploy sweep shard %d: %d shards solved"
+                   % (s, len(got)))
+            summary = got[0]
+            st.append(summary)
+            data, _ = load_result(os.path.join(dirs[name],
+                                               "shard_%05d.npz" % s))
+            _check(np.isfinite(data["xs"]).all()
+                   and data["xs"].shape == (shard, ex.T, ex.NX),
+                   "deploy sweep shard %d: xs not finite or misshapen" % s)
+            fi = sum(fused_ip.widths.values())
+            bs = sum(batched_solve.widths.values())
+            _check(fi > 0 and bs > 0, "deploy sweep shard %d: K1 %d, K2 %d "
+                   "launches" % (s, fi, bs))
+            shards.append(dict(
+                shard=s, n_converged=summary["n_converged"],
+                wall_s=summary["wall_s"],
+                solves_per_s=summary["solves_per_s"],
+                ip_solves=summary["ip_solves"], warm=summary["warm"],
+                non_finite_fields=sorted(
+                    k for k, v in data.items()
+                    if v.dtype.kind == "f" and not np.isfinite(v).all()),
+                launches=launches))
+            say("shard", shards[-1])
+        wall = time.perf_counter() - t0
+        return dict(wall_s=wall, converged=sum(x["n_converged"] for x in st),
+                    summaries=st, shards=shards)
+
+    # the cold arm: two shards
+    cold = arm("cold", n)
+    _check(len(cold["summaries"]) == n // shard, "cold arm: shards")
+    out["deploy_cold"] = cold
+    say("cold", dict(wall_s=cold["wall_s"], converged=cold["converged"]))
+
+    # resume: every shard is on disk, so no solve and no launch
+    _clear_launches()
+    st = sw.run_sweep_deploy(n, shard=shard, out_dir=dirs["cold"],
+                             verbose=False, device=device)
+    _check(st == [] and fused_ip.launches == 0
+           and batched_solve.launches == 0,
+           "resume: %d shards solved, K1 %d, K2 %d launches"
+           % (len(st), fused_ip.launches, batched_solve.launches))
+    out["resume"] = dict(shards_solved=0, launches=0)
+    say("resume", out["resume"])
+
+    # determinism: the cold arm's first shard again, with the phase
+    # timers (their barriers order the work and change no operation)
+    timers = PhaseTimer()
+    again = arm("again", shard, timers=timers)
+    out["determinism"] = dict(_same_shards(dirs["cold"], dirs["again"], 1),
+                              shards=1, converged=again["converged"],
+                              wall_s=again["wall_s"])
+    out["phase_timers"] = dict(timers.report(total_s=again["wall_s"]),
+                               shard=again["summaries"][0])
+    say("determinism", out["determinism"])
+    say("phase timers", out["phase_timers"])
+
+    # the warm arm: its first shard starts cold, as the cold arm's, so it
+    # resumes from that checkpoint and solves the second shard warm
+    os.makedirs(dirs["warm"])
+    shutil.copy(os.path.join(dirs["cold"], "shard_00000.npz"), dirs["warm"])
+    warm = arm("warm", n, warm=True)
+    _check(len(warm["summaries"]) == 1 and warm["summaries"][0]["warm"],
+           "warm arm: shards %s" % warm["summaries"])
+    out["deploy_warm"] = warm
+    out["arms"] = {
+        "cold": [(x["n_converged"], x["wall_s"], x["solves_per_s"],
+                  x["ip_solves"]) for x in cold["summaries"]],
+        "warm": [(x["n_converged"], x["wall_s"], x["solves_per_s"],
+                  x["ip_solves"]) for x in (cold["summaries"][:1]
+                                             + warm["summaries"])]}
+    say("arms (converged, wall_s, solves/s, IP solves a shard)", out["arms"])
+
+    # the friction grid, uncut: run_sweep(1)'s one scenario (friction
+    # 0.05, numpy seed 0), the reference's T=51 and budgets, a scalar
+    # float64 solve that converges without a retry
+    _clear_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid = sw.run_sweep(1, shard_size=1, out_dir=dirs["grid"],
+                        verbose=False)
+    wall = time.perf_counter() - t0
+    launches = _launches_by_width()
+    data, meta = load_result(os.path.join(dirs["grid"], "shard_00000.npz"))
+    res = ILQRResult(**{k: torch.as_tensor(v) for k, v in data.items()})
+    bad = sorted(k for k, v in data.items()
+                 if v.dtype.kind == "f" and not np.isfinite(v).all())
+    _check(len(grid) == 1 and meta == grid[0], "friction grid: summary")
+    _check(not bad, "friction grid: non-finite %s" % bad)
+    _check(bool(data["converged"].all()) and meta["retried"] == 0,
+           "friction grid: not converged (%s)" % meta)
+    rel = abs(float(data["objective"][0]) - GRID_REFERENCE["objective"]) \
+        / GRID_REFERENCE["objective"]
+    _check(rel <= 1e-6, "friction grid: objective %r, the reference's %r"
+           % (float(data["objective"][0]), GRID_REFERENCE["objective"]))
+    _check(any(k in ("tile 1", "thread 1") for k in launches["fused_ip"]),
+           "friction grid: K1 not launched at width 1: %s"
+           % launches["fused_ip"])
+    out["friction_grid"] = dict(summary=grid[0], wall_s=wall,
+                                frictions=[0.05],
+                                check_finite=check_finite(res).tolist(),
+                                non_finite_fields=bad,
+                                objective=data["objective"].tolist(),
+                                objective_rel_err=rel,
+                                iterations=data["iterations"].tolist(),
+                                reference=GRID_REFERENCE,
+                                launches=launches)
+    say("friction grid", out["friction_grid"])
+
+    # benchmark: one K1 call at width 128 (a shard's rollout step)
+    model, z0, th = envelope_batch(128, 211, device, torch.float32)
+    kern = make_fused_ip_solver(model, deploy_ip_options(), device,
+                                torch.float32)
+    out["benchmark_k1_128"] = benchmark(kern, z0, th, runs=20,
+                                        warmup=2)._asdict()
+    tmp.cleanup()
+    return out
+
 def main() -> int:
     import torch
 
@@ -2506,6 +2768,8 @@ def main() -> int:
     di = phase_direct(device)
     print("# phase 20 hopper direct transcription: %s" % json.dumps(di),
           flush=True)
+    sw = phase_sweep(device)
+    print("# phase 21 scenario sweep: %s" % json.dumps(sw), flush=True)
 
     src = "optimization_dynamics_tpu_torch/ops/kernels/csrc/"
     tpu = "optimization_dynamics_tpu/ops/pallas/"
@@ -2531,7 +2795,7 @@ def main() -> int:
                     library_ms=library_ms)
 
     def k3_entry(name, route):
-        return dict(name=name, route="cuda", source=src + "riccati.cu",
+        return dict(name=name, route="cuda", source=src + "riccati.cuh",
                     replaces=tpu + "riccati.py:262",
                     max_abs_err=max(c[route]["max_abs_err"]
                                     for c in k3["f32"].values()
@@ -2678,7 +2942,7 @@ def main() -> int:
     for name, route in (("riccati_n16_u10", "thread"),
                         ("riccati_n16_u10_tile", "tile")):
         kernels.append(dict(
-            name=name, route="cuda", source=src + "riccati.cu",
+            name=name, route="cuda", source=src + "riccati.cuh",
             replaces=tpu + "riccati.py:262",
             launches=ho["riccati_kernel"]["launches"][name],
             max_abs_err=max(hk["f32"][c][route]["max_abs_err"]
@@ -2739,6 +3003,21 @@ def main() -> int:
     for k in kernels:
         if k["name"] in sc["launches"]:
             k["launches_scalar"] = sc["launches"][k["name"]]
+    # phase 21's cold deploy sweep (two shards of 128): K1 by kernel, K2
+    # at (10, 8) by kernel
+    by_name = dict.fromkeys(("fused_ip", "fused_ip_tile", "batched_solve",
+                             "batched_solve_tile"), 0)
+    for sh in sw["deploy_cold"]["shards"]:
+        for key, v in sh["launches"]["fused_ip"].items():
+            by_name["fused_ip_tile" if key.startswith("tile ")
+                    else "fused_ip"] += v
+        for key, v in sh["launches"]["batched_solve"].items():
+            if key.startswith("10 8 "):
+                by_name["batched_solve_tile" if " tile " in key
+                        else "batched_solve"] += v
+    for k in kernels:
+        if k["name"] in by_name:
+            k["launches_sweep"] = by_name[k["name"]]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -235,6 +235,10 @@ def main_scalar(mode, device, dtype=torch.float64, us_init=None):
           % (float(res.xs[:, 3].abs().max()), 0.5 * math.pi))
     print("device=%s dtype=%s mode=%s wall %.3f s launches %s"
           % (device, dtype, mode, wall, launches))
+    from optimization_dynamics_tpu_torch.dynamics import (
+        state_to_configuration)
+    from optimization_dynamics_tpu_torch.utils.viz import maybe_visualize
+    maybe_visualize("acrobot", state_to_configuration(res.xs), dt=H)
     return res
 
 

@@ -215,6 +215,15 @@ def main_scalar(device, dtype=torch.float64):
     return res
 
 
+def visualize_solution(res):
+    """The reference's hook: an HTML player and a PNG of the solution in
+    ``$ODX_VIZ_DIR`` when that is set (``utils/viz.py``)."""
+    from optimization_dynamics_tpu_torch.dynamics import (
+        state_to_configuration)
+    from optimization_dynamics_tpu_torch.utils.viz import maybe_visualize
+    return maybe_visualize("cartpole", state_to_configuration(res.xs), dt=H)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--deploy", action="store_true",

@@ -48,6 +48,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import math
+import os
 import time
 
 import numpy as np
@@ -318,6 +319,15 @@ def main_scalar(mode, device, dtype=torch.float64, log: bool = False):
           float(final_state_error(res.xs[None], xT)[0]))
     print("device=%s dtype=%s wall %.3f s launches %s"
           % (device, dtype, wall, launches))
+    viz_dir = os.environ.get("ODX_VIZ_DIR")
+    if viz_dir:
+        from optimization_dynamics_tpu_torch.utils.viz import (
+            visualize_rocket_3d)
+        os.makedirs(viz_dir, exist_ok=True)
+        out = visualize_rocket_3d(
+            res.xs, os.path.join(viz_dir, "rocket_3d.html"),
+            us=effective_thrust(res.us, mode), dt=H)
+        print("3-D player:", out)
     return res
 
 

@@ -24,6 +24,13 @@ to the full Armijo grid).
 * ``log``: called with a progress line after every inner iteration and
   AL round (the reference's words, and the lanes below ``con_tol``), and
   for every lane dropped.
+* ``timers``: a ``utils.profiling.PhaseTimer``; every phase call is
+  wrapped with a barrier under the reference's phase names
+  (``rollout_open``, ``traj_cost``, ``ls_prep+slice0``, ``ls_rung<i>``,
+  ``ls_apply``, ``al_round``, ``finish``; ``@<W>`` appended at a
+  compacted width), so ``timers.report()`` gives the per-phase latency
+  budget (profiling only: the barriers serialise the card's queue).
+  Without it the executor makes the same calls in the same order.
 
 ``solve.stats`` counts, per call, the inner iterations dispatched and the
 derivative-sweep and line-search lane-rollouts (each x (T-1) IP solves).
@@ -58,7 +65,8 @@ def make_segmented_solver(prob: ILQRProblem, opts: ILQROptions, B: int,
                           al_stall_rounds: int = 0,
                           compact: bool = True,
                           compact_min: int = 8,
-                          max_iter_schedule=None, log=None):
+                          max_iter_schedule=None, log=None,
+                          timers=None):
     """Build ``solve(x0s, us_init, lam_init=None, lamT_init=None,
     rho_init=None) -> ILQRResult`` for batch width B on ``device``.
 
@@ -68,6 +76,7 @@ def make_segmented_solver(prob: ILQRProblem, opts: ILQROptions, B: int,
     device = torch.device(device)
     ph = make_phases(prob, opts, B, dtype, device)
     T, nu = ph.T, ph.nu
+    timed = ((lambda name, fn: fn) if timers is None else timers.wrap)
     ncon, nconT = prob.ncon, prob.nconT
 
     buckets = [B]
@@ -83,7 +92,12 @@ def make_segmented_solver(prob: ILQRProblem, opts: ILQROptions, B: int,
         if W not in _width_cache:
             phw = ph if W == B else make_phases(prob, opts, W, dtype,
                                                 device)
-            _width_cache[W] = (phw.ls_prep, phw.ls_rungs, phw.ls_apply)
+            at = "" if W == B else "@%d" % W
+            _width_cache[W] = (
+                timed("ls_prep+slice0" + at, phw.ls_prep),
+                [timed("ls_rung%d%s" % (i + 1, at), r)
+                 for i, r in enumerate(phw.ls_rungs)],
+                timed("ls_apply" + at, phw.ls_apply))
         return _width_cache[W]
 
     def _bucket_below(W, n):
@@ -161,11 +175,20 @@ def make_segmented_solver(prob: ILQRProblem, opts: ILQROptions, B: int,
             act, torch.clamp_max(rhos * opts.rho_scale, opts.rho_max), rhos)
         return vio_n, lams, lamTs, rhos
 
+    def finish(xss, uss, lams, lamTs, rhos):
+        return (ph.traj_cost(xss, uss, lams, lamTs, rhos),
+                ph.smooth_cost(xss, uss))
+
+    rollout_open = timed("rollout_open", ph.rollout_open)
+    traj_cost = timed("traj_cost", ph.traj_cost)
+    al_round = timed("al_round", al_round)
+    finish = timed("finish", finish)
+
     def inner(xss, uss, wss, lams, lamTs, rhos, act_al, its, gnorms,
               max_iter_round=None):
         """One AL round's inner iterations for the lanes in ``act_al``
         (numpy bool); ``max_iter_round`` is the round's inner budget."""
-        Js = ph.traj_cost(xss, uss, lams, lamTs, rhos)
+        Js = traj_cost(xss, uss, lams, lamTs, rhos)
         regs = torch.full((B,), opts.reg_init, dtype=dtype, device=device)
         done = ~act_al
         its_inc = np.zeros(B, np.int64)
@@ -226,7 +249,7 @@ def make_segmented_solver(prob: ILQRProblem, opts: ILQROptions, B: int,
             us_init = us_init[None].expand(B, T - 1, nu).contiguous()
 
         stats.clear()
-        xss, wss = ph.rollout_open(x0s, us_init)
+        xss, wss = rollout_open(x0s, us_init)
         _stat("roll_lanes", B)
         uss = us_init
         as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
@@ -295,8 +318,7 @@ def make_segmented_solver(prob: ILQRProblem, opts: ILQROptions, B: int,
             al_it = 1
             vio = np.zeros(B)
 
-        al_obj = ph.traj_cost(xss, uss, lams, lamTs, rhos)
-        obj = ph.smooth_cost(xss, uss)
+        al_obj, obj = finish(xss, uss, lams, lamTs, rhos)
         vio_dev = torch.as_tensor(vio, dtype=dtype, device=device)
         return ILQRResult(
             xs=xss, us=uss, objective=obj, al_objective=al_obj,

@@ -153,7 +153,7 @@ def test_k2_k3_tile_widths_fit():
     assert re.search(r"while \(w < N \+ K\) w \*= 2;", solve)
     sblock = int(re.search(r"constexpr int SOLVE_TILE_BLOCK = (\d+);",
                            solve)[1])
-    ric = (_build.CSRC / "riccati.cu").read_text()
+    ric = (_build.CSRC / "riccati.cuh").read_text()
     assert re.search(r"while \(w < NX \* NX && w < 32\) w \*= 2;", ric)
     rblock = int(re.search(r"constexpr int RICCATI_TILE_BLOCK = (\d+);",
                            ric)[1])

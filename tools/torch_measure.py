@@ -50,10 +50,8 @@ import cProfile
 import dataclasses
 import io
 import json
-import os
 import pstats
 import re
-import tempfile
 import time
 from collections import Counter
 
@@ -147,21 +145,6 @@ def deploy(args) -> None:
     print(json.dumps(out), flush=True)
 
 
-def _busy_seconds(intervals) -> float:
-    """Length of the union of (start, end) intervals."""
-    busy, cur = 0.0, None
-    for a, b in sorted(intervals):
-        if cur is None or a > cur[1]:
-            if cur is not None:
-                busy += cur[1] - cur[0]
-            cur = [a, b]
-        else:
-            cur[1] = max(cur[1], b)
-    if cur is not None:
-        busy += cur[1] - cur[0]
-    return busy
-
-
 def _kernel_label(name: str) -> str:
     """The port's kernel a profiler event belongs to, by the CUDA kernel's
     name: K1 (cartpole), K1n (push) or K1a (acrobot) by the functor, each
@@ -195,11 +178,10 @@ def _kernel_label(name: str) -> str:
 
 
 def profile(args) -> None:
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
     from optimization_dynamics_tpu_torch.solver.ilqr_segmented import (
         make_segmented_solver)
+    from optimization_dynamics_tpu_torch.utils.measure import (
+        busy_seconds, kernel_trace)
 
     ex, B = _example(args)
     dev = torch.device("cuda")
@@ -237,17 +219,8 @@ def profile(args) -> None:
     pstats.Stats(pr, stream=st).sort_stats("tottime").print_stats(25)
     print(st.getvalue())
 
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as p:
-        _, prof_wall = run()
-    fd, path = tempfile.mkstemp(suffix=".json")
-    os.close(fd)
-    p.export_chrome_trace(path)
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    os.unlink(path)
-    kern = [e for e in events if e.get("cat") == "kernel"]
-    busy = _busy_seconds((e["ts"], e["ts"] + e["dur"]) for e in kern) / 1e6
+    (_, prof_wall), kern = kernel_trace(run)
+    busy = busy_seconds(kern)
     print("# profiled wall %.3f s, kernels %d, device busy %.3f s, busy "
           "share %.4f" % (prof_wall, len(kern), busy, busy / prof_wall))
     by_name = {}
