@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``optimization_dynamics_tpu_torch/ops/
-kernels/csrc`` and runs phases 0-21, each printing one ``#`` line:
+kernels/csrc`` and runs phases 0-22, each printing one ``#`` line:
 
 0. card: ``nvidia-smi`` name and power limit, torch and CUDA versions,
    kernel build time in all and per source, and what ``ptxas`` reported
@@ -43,8 +43,8 @@ kernels/csrc`` and runs phases 0-21, each printing one ``#`` line:
    initial open-loop rollout's on most lanes, the launch counters of K2
    and of both K1 kernels above zero (the tile kernel by the rollout
    steps, the per-thread one by the sweeps); then a small-input check:
-   four lanes in float64
-   on the card against the same solve on the CPU;
+   four lanes in float64 on the card against the same solve on the CPU,
+   one inner iteration (so in phases 6, 8, 10, 13 and 15);
 4. K3 (Riccati backward pass) against its plain version: random LQR data
    (numpy seeds) at the deploy shape (nx=4, nu=1, T=51) at B=512 and
    25,600, a ragged ``u_mask`` at (4, 3, 6), an indefinite Quu on
@@ -245,28 +245,57 @@ kernels/csrc`` and runs phases 0-21, each printing one ``#`` line:
    each part ends: ``scenario_mesh()`` lists the visible cards, and
    ``sharded_map`` of the acrobot's lane-batched step on 16 lanes
    (float64, numpy seed 210) equals the unsharded call bit for bit; the
-   f32 deploy sweep (``run_sweep_deploy(256, shard=128)``: the deploy
-   problem, the (15, 15, 25, 25, 30) schedule, ``al_stall_rounds=2``,
-   nothing cut) cold into a temporary checkpoint directory, one call a
-   shard (``run_sweep_deploy(128 (s + 1))``: the shards before resume
-   from disk), the counts cleared before each call and read after it:
-   each shard's converged count, wall, converged solves/s, IP solves, its
-   non-finite fields and K1 and K2 launches by kernel and width (both
-   launched on every shard, the trajectory finite and of its shape); the
-   whole call on that directory again, which must solve nothing and
-   launch nothing; the first shard again into a second directory with a
+   f32 deploy sweep's first shard (``run_sweep_deploy(128, shard=128)``:
+   the deploy problem, the (15, 15, 25, 25, 30) schedule,
+   ``al_stall_rounds=2``, nothing cut; its second shard, cold, is cut
+   to keep the script within its time limit) cold into a temporary
+   checkpoint directory, the counts cleared before the call
+   and read after it: the shard's converged count, wall, converged
+   solves/s, IP solves, its non-finite fields and K1 and K2 launches by
+   kernel and width (both launched, the trajectory finite and of its
+   shape); the same call on that directory again, which must solve
+   nothing and launch nothing; the first shard again into a second directory with a
    ``PhaseTimer`` in the executor (its barriers order the work and change
    no operation), its checkpoint compared with the first's array by
    array (bit-identical, or the differences reported, not failed), and
    the timer's phase table with the host residual against its wall; the
-   warm arm (``warm=True``), whose first shard starts cold as the cold
-   arm's does, so it resumes from that checkpoint and solves the second
-   shard warm from it, beside the cold arm; the friction grid
-   ``run_sweep(1, shard_size=1)`` uncut (friction 0.05, the reference's
+   warm arm (``warm=True``): the first shard's checkpoint copied into a
+   third directory, so the call resumes from it and solves the second
+   shard (x0 + 0.04 d) warm from it, its controls and AL duals handed
+   to the executor on the card, with the cold shard's checks; the
+   friction grid ``run_sweep(1, shard_size=1)`` uncut (friction 0.05, the reference's
    T=51 and budgets; K1 at width 1), which must converge without a retry
    with every floating field finite and its objective within 1e-6 of the
    reference's (``GRID_REFERENCE``); and ``benchmark`` of one K1 call at
-   128 cold lanes (float32, numpy seed 211).
+   128 cold lanes (float32, numpy seed 211);
+22. the executor's variants on the cartpole deploy problem, each with
+   the deploy options cut to two AL rounds of at most 10 inner
+   iterations: (a) float64 at B=64 without compaction, schedule or
+   stall policy, the cascade against ``two_stage_ls=False``,
+   ``per_lane_alpha=True``, ``iters_per_dispatch=4`` and
+   ``solve_batched``, each taking the cascade's flags and inner counts
+   with controls within 1e-9 on at least 62 of 64 lanes (the differing
+   lanes printed with their flags, counts and costs), and
+   ``per_lane_alpha="device"`` and ``alpha_memory``, which are not
+   decision-identical, their converged counts printed; and a probe of
+   whether a line-search candidate's states and AL cost depend on the
+   width it is rolled at (B, 2B, the full grid's 8B), bit for bit, with
+   the terminal cost in three forms;
+   (b) float32 at B=512 with compaction, the cascade, ``two_stage_ls=
+   False``, ``iters_per_dispatch=4``, ``per_lane_alpha=True``,
+   ``per_lane_alpha="device"`` and ``solve_batched``: finite, the
+   objective below the open-loop rollout's on most lanes, K1 and K2
+   launched, every K1 and K2 launch on the kernel its width picks, each
+   variant's wall, inner iterations, ``solve.stats`` and launches by
+   kernel and width printed; then ``per_lane_alpha="device"`` with K3
+   and K4, both launched, K4 and K3 on their routes; (c) K3 at (2, 1)
+   and (4, 2) (``lqr_batch``, B=512, T=51, numpy seeds 220, 221, the
+   last pivot of Quu at t=0 negative on every fifth lane) against its
+   plain version through each of its two kernels, forced by the cut,
+   with phase 4's checks, float32 timed one call and queued; and
+   ``solve_batched`` on the reference's double integrator (T=11, B=3,
+   float64) with K3 at (2, 1) against the eager backward pass, xs within
+   1e-10.
 
 The kernels' designs are in their wrappers' docstrings
 (``ops/kernels/*.py``). K1 (cartpole, the rocket's projection, the
@@ -318,8 +347,10 @@ lane of its plain version. The trials are those the plain version's
 solve of the same inputs needs (``interior_point.ls_trials``): on each
 Newton iteration the candidates up to the first improving one.
 
-Any failure raises and the exit code is non-zero. Before the last line it
-prints the ``nvidia-smi`` line and a JSON line of the kernels: each
+Any failure raises and the exit code is non-zero. After phase 22 it
+prints ``# phase seconds:``, the build's and each phase's seconds. Before
+the last line it prints the ``nvidia-smi`` line and a JSON line of the
+kernels: each
 kernel of the two-kernel pairs is timed through itself, forced by the
 width cut, and its ``launches`` are the main path's launches of it
 (``fused_ip`` is K1's per-thread kernel, timed on 25,600 warm lanes,
@@ -365,7 +396,15 @@ at the sweeps' widths (phases 16, 17: 15,360 cold projections, 5,120
 warm hopper solves), ``fused_ip_rocket_projection_tile`` and
 ``fused_ip_hopper_tile`` their tile kernels, timed at 512 cold lanes,
 each with ``ms_device`` and its time at the other width beside it
-(``ms_<case>``), their launches from phases 15 and 13. The last line
+(``ms_<case>``), their launches from phases 15 and 13. ``riccati`` and
+``riccati_tile`` carry phase 22's times at (2, 1) and (4, 2) (B=512,
+T=51, float32: ``ms_2_1``, ``ms_device_2_1``, ``plain_ms_2_1``,
+``bound_ms_2_1``, ``max_abs_err_2_1``, and the same for ``4_2``) and
+their launches at those shapes (``launches_2_1`` from phase 22's
+double-integrator solve; no solve runs (4, 2)); ``fused_ip``,
+``fused_ip_tile``, ``batched_solve`` and ``batched_solve_tile`` carry
+their launches over phase 22's six B=512 variants as
+``launches_executor_variants``. The last line
 is ``{"ok": true,
 "device": {...}}``. It needs one card and no network.
 """
@@ -461,7 +500,7 @@ def _with_trials(run):
         out = run()
     finally:
         ls_trials.on = False
-    return out, ls_trials.n
+    return out, int(ls_trials.n)
 
 
 def deploy_ip_options():
@@ -815,7 +854,7 @@ def phase_main(device) -> dict:
             dev, dtype=torch.float64, ip_overrides=ex.DEPLOY_IP_ACCEL)
         o = dataclasses.replace(o, max_al_iter=1)
         s = make_segmented_solver(p, o, 4, torch.float64, dev,
-                                  compact=False, max_iter_schedule=[2])
+                                  compact=False, max_iter_schedule=[1])
         r = s(ex.deploy_x0s(x0d, 4, seed=0), usd)
         small.append((r.objective.cpu(), r.us.cpu()))
     (obj_card, us_card), (obj_cpu, us_cpu) = small
@@ -1045,7 +1084,16 @@ def phase_k4(device) -> dict:
                                       dtype)
             plain = make_fused_rollout_plain(model, opts, aux, T, mask,
                                              device, dtype)
+            # the plain version's one call (about 20 s at this width) is
+            # its agreement run and its time; counting its trials adds
+            # four small launches a Newton iteration and no host sync
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
             p, trials = _with_trials(lambda: plain(*args))
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
             runs = {case: kern}
             for route in ("tile", "thread"):
                 runs["%s_%s" % (case, route)] = routed(
@@ -1070,8 +1118,7 @@ def phase_k4(device) -> dict:
                     res[key]["bound_share"] = (res[key]["bound_ms"]
                                                / res[key]["ms"])
             if dtype == torch.float32 and mask is None:
-                res[case]["plain_ms"] = cuda_ms(lambda: plain(*args),
-                                                 reps=1)
+                res[case]["plain_ms"] = plain_ms
         if dtype == torch.float64:
             # against the per-step K1 path: closed_loop without K4 (both
             # through ip_solve_tile at this width)
@@ -1196,7 +1243,7 @@ def phase_new_path(device) -> dict:
             fused_rollout=True)
         o = dataclasses.replace(o, max_al_iter=1, riccati_kernel=True)
         s = make_segmented_solver(p, o, 4, torch.float64, dev,
-                                  compact=False, max_iter_schedule=[2])
+                                  compact=False, max_iter_schedule=[1])
         r = s(ex.deploy_x0s(x0d, 4, seed=0), usd)
         small.append((r.objective.cpu(), r.us.cpu()))
     (obj_card, us_card), (obj_cpu, us_cpu) = small
@@ -1409,7 +1456,7 @@ def phase_push(device) -> dict:
             dev, dtype=torch.float64, ip_overrides=ex.DEPLOY_IP_ACCEL)
         o = dataclasses.replace(o, max_al_iter=1)
         s = make_segmented_solver(p, o, 4, torch.float64, dev,
-                                  compact=False, max_iter_schedule=[2])
+                                  compact=False, max_iter_schedule=[1])
         r = s(ex.deploy_x0s(x0d, 4, seed=0), usd)
         small.append((r.objective.cpu(), r.us.cpu()))
     (obj_card, us_card), (obj_cpu, us_cpu) = small
@@ -1534,7 +1581,7 @@ def phase_acrobot(device) -> dict:
             dev, dtype=torch.float64, accelerator_ip=True)
         o = dataclasses.replace(o, max_al_iter=1)
         s = make_segmented_solver(p, o, 4, torch.float64, dev,
-                                  compact=False, max_iter_schedule=[2])
+                                  compact=False, max_iter_schedule=[1])
         r = s(ex.deploy_x0s(x0d, 4, seed=0), usd)
         small.append((r.objective.cpu(), r.us.cpu()))
     (obj_card, us_card), (obj_cpu, us_cpu) = small
@@ -1792,7 +1839,7 @@ def _hopper_solve(device, riccati_kernel: bool) -> dict:
         o = dataclasses.replace(o, max_al_iter=1,
                                 riccati_kernel=riccati_kernel)
         s = make_segmented_solver(p, o, 4, torch.float64, dev,
-                                  compact=False, max_iter_schedule=[2])
+                                  compact=False, max_iter_schedule=[1])
         r = s(ex.deploy_x0s(x0d, 4, seed=0), usd)
         small.append((r.objective.cpu(), r.us.cpu()))
     (obj_card, us_card), (obj_cpu, us_cpu) = small
@@ -1979,7 +2026,7 @@ def phase_rocket(device) -> dict:
             dev, dtype=torch.float64, accelerator_ip=True)
         o = dataclasses.replace(o, max_al_iter=1)
         s = make_segmented_solver(p, o, 4, torch.float64, dev,
-                                  compact=False, max_iter_schedule=[2])
+                                  compact=False, max_iter_schedule=[1])
         r = s(ex.deploy_x0s(x0d, 4, seed=0), usd)
         small.append((r.objective.cpu(), r.us.cpu()))
     (obj_card, us_card), (obj_cpu, us_cpu) = small
@@ -2553,7 +2600,7 @@ def phase_sweep(device) -> dict:
                        sharded_equal=True)
     say("mesh", out["mesh"])
 
-    n, shard = 256, 128
+    shard = 128
     tmp = tempfile.TemporaryDirectory()
     dirs = {a: os.path.join(tmp.name, a) for a in ("cold", "again", "warm",
                                                     "grid")}
@@ -2601,15 +2648,15 @@ def phase_sweep(device) -> dict:
         return dict(wall_s=wall, converged=sum(x["n_converged"] for x in st),
                     summaries=st, shards=shards)
 
-    # the cold arm: two shards
-    cold = arm("cold", n)
-    _check(len(cold["summaries"]) == n // shard, "cold arm: shards")
+    # the cold arm: its first shard
+    cold = arm("cold", shard)
+    _check(len(cold["summaries"]) == 1, "cold arm: shards")
     out["deploy_cold"] = cold
     say("cold", dict(wall_s=cold["wall_s"], converged=cold["converged"]))
 
-    # resume: every shard is on disk, so no solve and no launch
+    # resume: the shard is on disk, so no solve and no launch
     _clear_launches()
-    st = sw.run_sweep_deploy(n, shard=shard, out_dir=dirs["cold"],
+    st = sw.run_sweep_deploy(shard, shard=shard, out_dir=dirs["cold"],
                              verbose=False, device=device)
     _check(st == [] and fused_ip.launches == 0
            and batched_solve.launches == 0,
@@ -2630,20 +2677,18 @@ def phase_sweep(device) -> dict:
     say("determinism", out["determinism"])
     say("phase timers", out["phase_timers"])
 
-    # the warm arm: its first shard starts cold, as the cold arm's, so it
-    # resumes from that checkpoint and solves the second shard warm
+    # the warm arm: the cold arm's first shard copied in, so the call
+    # resumes from it and solves the second shard warm from it
     os.makedirs(dirs["warm"])
     shutil.copy(os.path.join(dirs["cold"], "shard_00000.npz"), dirs["warm"])
-    warm = arm("warm", n, warm=True)
+    warm = arm("warm", 2 * shard, warm=True)
     _check(len(warm["summaries"]) == 1 and warm["summaries"][0]["warm"],
            "warm arm: shards %s" % warm["summaries"])
     out["deploy_warm"] = warm
     out["arms"] = {
-        "cold": [(x["n_converged"], x["wall_s"], x["solves_per_s"],
-                  x["ip_solves"]) for x in cold["summaries"]],
-        "warm": [(x["n_converged"], x["wall_s"], x["solves_per_s"],
-                  x["ip_solves"]) for x in (cold["summaries"][:1]
-                                             + warm["summaries"])]}
+        arm_name: [(x["n_converged"], x["wall_s"], x["solves_per_s"],
+                    x["ip_solves"]) for x in a["summaries"]]
+        for arm_name, a in (("cold", cold), ("warm", warm))}
     say("arms (converged, wall_s, solves/s, IP solves a shard)", out["arms"])
 
     # the friction grid, uncut: run_sweep(1)'s one scenario (friction
@@ -2691,6 +2736,371 @@ def phase_sweep(device) -> dict:
     tmp.cleanup()
     return out
 
+# phase 22: the executor's variants (name -> make_segmented_solver
+# options; "monolithic" is solve_batched). The decision-identical ones
+# take the cascade's decisions lane for lane.
+EXECUTOR_IDENTICAL = {"single_stage": dict(two_stage_ls=False),
+                      "per_lane_alpha": dict(per_lane_alpha=True),
+                      "k4": dict(iters_per_dispatch=4),
+                      "monolithic": None}
+EXECUTOR_OTHER = {"per_lane_alpha_device": dict(per_lane_alpha="device"),
+                  "alpha_memory": dict(per_lane_alpha=True,
+                                       alpha_memory=True)}
+# lanes of phase 22's float64 decision-identity solves and of its float32
+# full-width solves, and the options every variant's solve is cut to
+EXECUTOR_B_IDENTITY, EXECUTOR_B_FULL = 64, 512
+EXECUTOR_CUT = dict(max_iter=10, max_al_iter=2)
+
+
+def _executor_solve(prob, opts, B, device, kw, x0s, us0, compact):
+    """One solve through the executor variant ``kw`` (None: the lockstep
+    ``solve_batched``), timed to the card's end; (result, wall, stats)."""
+    import torch
+
+    from optimization_dynamics_tpu_torch.solver.ilqr_batched import (
+        solve_batched)
+    from optimization_dynamics_tpu_torch.solver.ilqr_segmented import (
+        make_segmented_solver)
+
+    if kw is None:
+        run, stats = (lambda a, b: solve_batched(prob, a, b, opts)), {}
+    else:
+        run = make_segmented_solver(prob, opts, B, x0s.dtype, device,
+                                    compact=compact, **kw)
+        stats = run.stats
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run(x0s, us0)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, dict(stats)
+
+
+def _lane_fields(res, i) -> dict:
+    """Lane ``i``'s flags, counts and costs of an ``ILQRResult``."""
+    return dict(converged=bool(res.converged[i]),
+                iterations=int(res.iterations[i]),
+                al_iterations=int(res.al_iterations[i]),
+                objective=float(res.objective[i]),
+                al_objective=float(res.al_objective[i]),
+                constraint_violation=float(res.constraint_violation[i]),
+                gradient_norm=float(res.gradient_norm[i]))
+
+
+def _width_probe(prob, opts, x0s, us0, device) -> dict:
+    """Whether a line-search candidate's decision inputs depend on the
+    width it is rolled at: at the open-loop start, every grid alpha rolled
+    at width B (one alpha a lane, the per-lane rungs), 2B (the cascade's
+    first slice, the first two alphas) and n_alpha B (the full grid),
+    states and AL costs compared bit for bit; then the terminal cost
+    alone on the same final states at widths B and n_alpha B, as the
+    problem writes it, as a vmapped dot product, as a sum of squares and
+    as an unrolled sum."""
+    import torch
+    from torch.func import vmap
+
+    from optimization_dynamics_tpu_torch.solver.ilqr_batched import (
+        make_phases)
+
+    B, dtype, T, nx = x0s.shape[0], x0s.dtype, prob.T, prob.nx
+    ph = make_phases(prob, opts, B, dtype, device)
+    A, grid = ph.n_alpha, ph.alpha_grid
+    full = lambda shape, v: torch.full(shape, v, dtype=dtype, device=device)
+    uss = us0[None].expand(B, -1, -1).contiguous()
+    xss, wss = ph.rollout_open(x0s, uss)
+    lams = full((B, T - 1, max(prob.ncon, 1)), 0.0)
+    lamTs = full((B, max(prob.nconT, 1)), 0.0)
+    rhos = full((B,), opts.rho_init)
+    Kss, kss = ph.backward(*ph.derivatives(xss, uss, lams, lamTs, rhos,
+                                           wss), full((B,), opts.reg_init))[:2]
+
+    def roll(alphas):
+        """Each lane's rollouts at ``alphas (B, n)``, lane-major in one
+        call of width B n: states (B, n, T, nx) and AL costs (B, n)."""
+        n = alphas.shape[1]
+        rep = lambda a: torch.repeat_interleave(a, n, dim=0)
+        xs, _, J, _ = ph.closed_loop(rep(xss), rep(uss), rep(Kss), rep(kss),
+                                     alphas.reshape(-1), rep(lams),
+                                     rep(lamTs), rep(rhos), rep(wss))
+        return xs.reshape(B, n, T, nx), J.reshape(B, n)
+
+    xg, Jg = roll(grid.expand(B, A))
+    x2, J2 = roll(grid[:2].expand(B, 2))
+    one = [roll(grid[i].expand(B, 1)) for i in range(A)]
+    x1 = torch.cat([o[0] for o in one], dim=1)
+    J1 = torch.cat([o[1] for o in one], dim=1)
+    rel = lambda a, b: float(((a - b).abs() / b.abs()).max())
+    xf = xg[:, :, -1]
+    # the goal: terminal_con(x) = x - goal
+    goal = -prob.terminal_con(torch.zeros(nx, dtype=dtype, device=device))
+
+    def unrolled(x):
+        d = x - goal
+        acc = d[0] * d[0]
+        for j in range(1, nx):
+            acc = acc + d[j] * d[j]
+        return acc
+
+    forms = {"problem": vmap(prob.terminal_cost),
+             "vmap_dot": vmap(lambda x: (x - goal) @ (x - goal)),
+             "vmap_sum": vmap(lambda x: torch.sum((x - goal) ** 2)),
+             "unrolled": vmap(unrolled)}
+    terminal = {}
+    for name, f in forms.items():
+        wide = f(xf.reshape(B * A, nx)).reshape(B, A)
+        narrow = torch.stack([f(xf[:, i].contiguous()) for i in range(A)],
+                             dim=1)
+        terminal[name] = dict(equal=bool(torch.equal(wide, narrow)),
+                              entries_differing=int((wide != narrow).sum()))
+    return dict(
+        states_grid_eq_single=bool(torch.equal(xg, x1)),
+        states_slice_eq_single=bool(torch.equal(x2, x1[:, :2])),
+        cost_grid_eq_single=bool(torch.equal(Jg, J1)),
+        cost_grid_entries_differing=int((Jg != J1).sum()),
+        cost_grid_max_rel=rel(Jg, J1),
+        cost_slice_eq_single=bool(torch.equal(J2, J1[:, :2])),
+        cost_slice_entries_differing=int((J2 != J1[:, :2]).sum()),
+        cost_slice_max_rel=rel(J2, J1[:, :2]),
+        terminal_cost_wide_eq_narrow=terminal)
+
+
+def _double_integrator(device, dtype):
+    """The reference's K3 test problem (``tests/test_pallas_riccati.py``,
+    ``test_e2e_solve_with_pallas_riccati``): T=11, nx=2, nu=1."""
+    import torch
+
+    from optimization_dynamics_tpu_torch.solver.ilqr import ILQRProblem
+
+    A = torch.tensor([[1.0, 0.1], [0.0, 1.0]], dtype=dtype, device=device)
+    Bm = torch.tensor([[0.0], [0.1]], dtype=dtype, device=device)
+    xT = torch.tensor([1.0, 0.0], dtype=dtype, device=device)
+    return ILQRProblem(
+        T=11, nx=2, nu=1, ncon=0, nconT=0,
+        dynamics_batched=lambda t, xs, us: xs @ A.T + us @ Bm.T,
+        dynamics_jac_batched=lambda ts, xs, us: (
+            xs @ A.T + us @ Bm.T, A.expand(xs.shape[0], 2, 2),
+            Bm.expand(xs.shape[0], 2, 1)),
+        stage_cost=lambda t, x, u: 0.1 * torch.sum(u * u),
+        terminal_cost=lambda x: 100.0 * torch.sum((x - xT) ** 2))
+
+
+def phase_executor(device) -> dict:
+    import torch
+
+    from optimization_dynamics_tpu_torch.examples import cartpole as ex
+    from optimization_dynamics_tpu_torch.ops.kernels._build import (
+        BATCHED_SOLVE_TILE_MAX_B, FUSED_IP_TILE_MAX_B, RICCATI_TILE_MAX_B,
+        riccati_route)
+    from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
+        batched_solve)
+    from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import fused_ip
+    from optimization_dynamics_tpu_torch.ops.kernels.fused_rollout import (
+        fused_rollout)
+    from optimization_dynamics_tpu_torch.ops.kernels.riccati import (
+        riccati_backward, riccati_backward_plain)
+    from optimization_dynamics_tpu_torch.solver.ilqr import ILQROptions
+    from optimization_dynamics_tpu_torch.solver.ilqr_batched import (
+        make_phases, solve_batched)
+
+    out = {}
+    cut_opts = lambda o: dataclasses.replace(o, **EXECUTOR_CUT)
+
+    # (a) decision identity, float64, B=64, no compaction, no schedule,
+    # no stall policy: every variant runs solve_batched's budget
+    B = EXECUTOR_B_IDENTITY
+    prob, x0, us0, opts = ex.build_deploy_problem(device,
+                                                  dtype=torch.float64)
+    opts = cut_opts(opts)
+    x0s = ex.deploy_x0s(x0, B, seed=0)
+    runs = {"cascade": _executor_solve(prob, opts, B, device, {}, x0s, us0,
+                                       False)}
+    for name, kw in {**EXECUTOR_IDENTICAL, **EXECUTOR_OTHER}.items():
+        runs[name] = _executor_solve(prob, opts, B, device, kw, x0s, us0,
+                                     False)
+    ref = runs["cascade"][0]
+    ident = {"cascade": dict(converged=int(ref.converged.sum()),
+                             wall_s=runs["cascade"][1],
+                             inner_iters=runs["cascade"][2]["inner_iters"])}
+    for name, (res, wall, stats) in runs.items():
+        if name == "cascade":
+            continue
+        entry = dict(converged=int(res.converged.sum()), wall_s=wall,
+                     stats=stats)
+        if name in EXECUTOR_IDENTICAL:
+            same = ((res.converged == ref.converged)
+                    & (res.iterations == ref.iterations)
+                    & ((res.us - ref.us).abs().amax(dim=(1, 2)) <= 1e-9))
+            differ = torch.nonzero(~same).flatten().tolist()
+            entry.update(lanes_identical=int(same.sum()),
+                         lanes_differing=differ,
+                         max_dus=float((res.us - ref.us).abs().max()),
+                         differing={i: {"cascade": _lane_fields(ref, i),
+                                        name: _lane_fields(res, i)}
+                                    for i in differ})
+            _check(int(same.sum()) >= B - B // 32,
+                   "executor %s: %d of %d lanes take the cascade's "
+                   "decisions (differing: %s)" % (name, int(same.sum()), B,
+                                                  differ))
+        ident[name] = entry
+    ident["width_probe"] = _width_probe(prob, opts, x0s, us0, device)
+    out["identity_f64_64"] = ident
+
+    # (b) the slice at full width, float32, B=512, each variant with the
+    # cut options and the deploy's compaction: finite, the objective below
+    # the open-loop rollout's on most lanes, K1 and K2 launched, each
+    # launch on the kernel its width picks
+    B = EXECUTOR_B_FULL
+    prob, x0, us0, opts = ex.build_deploy_problem(device)
+    _check(x0.dtype == torch.float32, "deploy dtype on the card is f32")
+    opts = cut_opts(opts)
+    x0s = ex.deploy_x0s(x0, B, seed=0)
+    uss0 = us0[None].expand(B, -1, -1)
+    ph = make_phases(prob, opts, B, x0.dtype, device)
+    obj0 = ph.smooth_cost(ph.rollout_open(x0s, uss0)[0], uss0)
+    k1_cut = FUSED_IP_TILE_MAX_B["fused_ip", "cartpole_friction"]
+    k2_cut = BATCHED_SOLVE_TILE_MAX_B[10, 8]
+    full = {}
+    variants = {"cascade": {}, "single_stage": dict(two_stage_ls=False),
+                "k4": dict(iters_per_dispatch=4),
+                "per_lane_alpha": dict(per_lane_alpha=True),
+                "per_lane_alpha_device": dict(per_lane_alpha="device"),
+                "monolithic": None}
+    for name, kw in variants.items():
+        _clear_launches()
+        res, wall, stats = _executor_solve(prob, opts, B, device, kw, x0s,
+                                           us0, True)
+        k1w = {"%s_%d" % kb: n for kb, n in sorted(fused_ip.widths.items())}
+        for field in ("xs", "us", "objective", "constraint_violation"):
+            _check(bool(torch.isfinite(getattr(res, field)).all()),
+                   "executor %s: %s not finite" % (name, field))
+        fell = float((res.objective < obj0).float().mean())
+        _check(fell >= 0.5, "executor %s: objective fell on only %.3f of "
+               "lanes" % (name, fell))
+        _check(fused_ip.launches > 0 and batched_solve.launches > 0,
+               "executor %s: K1 or K2 not launched" % name)
+        _check(all((r == "tile") == (b <= k1_cut)
+                   for r, b in fused_ip.widths),
+               "executor %s: K1 launches off their route: %s" % (name, k1w))
+        full[name] = dict(
+            wall_s=wall, converged=int(res.converged.sum()),
+            objective_fell_frac=fell,
+            inner_iters_dispatched=(stats["inner_iters"] if "inner_iters"
+                                    in stats else None),
+            mean_inner_iters=float(res.iterations.float().mean()),
+            stats=stats, fused_ip_widths=k1w,
+            fused_ip=fused_ip.launches - fused_ip.tile_launches,
+            fused_ip_tile=fused_ip.tile_launches,
+            batched_solve=batched_solve.launches,
+            batched_solve_widths=_routed_widths("K2", batched_solve,
+                                                k2_cut))
+    # the device variant with K3 and K4 on
+    prob_f, _, _, opts_f = ex.build_deploy_problem(device,
+                                                   fused_rollout=True)
+    opts_f = dataclasses.replace(cut_opts(opts_f), riccati_kernel=True)
+    _clear_launches()
+    _zero_counts(riccati_backward)
+    fused_rollout.launches = fused_rollout.tile_launches = 0
+    fused_rollout.widths.clear()
+    res, wall, stats = _executor_solve(prob_f, opts_f, B, device,
+                                       dict(per_lane_alpha="device"), x0s,
+                                       us0, True)
+    _check(bool(torch.isfinite(res.xs).all() & torch.isfinite(res.us).all()),
+           "executor device K3+K4: not finite")
+    _check(riccati_backward.launches > 0 and fused_rollout.launches > 0,
+           "executor device K3+K4: K3 or K4 not launched")
+    k4_cut = FUSED_IP_TILE_MAX_B["fused_rollout", "cartpole_friction"]
+    _check(all((r == "tile") == (b <= k4_cut)
+               for r, b in fused_rollout.widths),
+           "executor device K3+K4: K4 launches off their route")
+    full["per_lane_alpha_device_k3_k4"] = dict(
+        wall_s=wall, converged=int(res.converged.sum()), stats=stats,
+        fused_rollout={"%s_%d" % kb: n
+                       for kb, n in sorted(fused_rollout.widths.items())},
+        riccati_widths=_routed_widths("K3", riccati_backward,
+                                      RICCATI_TILE_MAX_B[4, 1]),
+        fused_ip=fused_ip.launches, batched_solve=batched_solve.launches)
+    out["full_f32_512"] = full
+
+    # (c) K3 at (2, 1) and (4, 2) against its plain version, through each
+    # kernel forced by the cut, every fifth lane with an indefinite Quu
+    k3 = {}
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
+        dname = "f64" if dtype == torch.float64 else "f32"
+        for (nx, nu), seed in (((2, 1), 220), ((4, 2), 221)):
+            Bk, T = 512, 51
+            data = lqr_batch(seed, Bk, T, nx, nu, device, dtype)
+            mask = torch.ones((T - 1, nu), dtype=dtype, device=device)
+            bad = torch.zeros(Bk, dtype=torch.bool, device=device)
+            bad[::5] = True
+            data[5][bad, 0, nu - 1, nu - 1] = -1.0e4    # last pivot < 0
+            plain = riccati_backward_plain(*data, mask)
+            case = {"route": riccati_route(nx, nu, Bk)}
+            got = {}
+            for route in ("tile", "thread"):
+                run = cut_routed(RICCATI_TILE_MAX_B, (nx, nu),
+                                 route == "tile", riccati_backward)
+                tiles = riccati_backward.tile_launches
+                got[route] = run(*data, mask)
+                torch.cuda.synchronize()
+                _check(riccati_backward.tile_launches - tiles
+                       == (route == "tile"),
+                       "K3 (%d, %d) %s: not on the %s kernel"
+                       % (nx, nu, dname, route))
+                case[route] = _k3_agreement(
+                    got[route], plain, bad, dtype, tol,
+                    "(%d, %d) %s %s" % (nx, nu, dname, route), mask)
+                if dtype == torch.float32:
+                    case[route].update(
+                        ms=cuda_ms(lambda: run(*data, mask)),
+                        ms_device=device_ms(lambda: run(*data, mask)))
+            case["tile_bitwise_thread"] = all(
+                torch.equal(a, b) for a, b in zip(got["tile"],
+                                                  got["thread"]))
+            if dtype == torch.float32:
+                case["plain_ms"] = cuda_ms(
+                    lambda: riccati_backward_plain(*data, mask), reps=3)
+                case.update(_bound(
+                    _nbytes(*data, mask, *got["tile"][:2]) + 4 * Bk * 4,
+                    Bk * (T - 1) * _riccati_flops(nx, nu)))
+            k3["%s_%d_%d" % (dname, nx, nu)] = case
+    out["k3"] = k3
+
+    # solve_batched on the double integrator, float64: K3 at (2, 1)
+    # against the eager backward pass
+    dx0s = 0.1 * torch.as_tensor(np.random.default_rng(222)
+                                 .standard_normal((3, 2)),
+                                 dtype=torch.float64, device=device)
+    dus0 = torch.zeros((10, 1), dtype=torch.float64, device=device)
+    dprob = _double_integrator(device, torch.float64)
+    r_eager = solve_batched(dprob, dx0s, dus0, ILQROptions(max_iter=30))
+    _zero_counts(riccati_backward)
+    r_k3 = solve_batched(dprob, dx0s, dus0,
+                         ILQROptions(max_iter=30, riccati_kernel=True))
+    torch.cuda.synchronize()
+    dxs = float((r_k3.xs - r_eager.xs).abs().max())
+    _check(dxs <= 1e-10, "solve_batched with K3 at (2, 1): max|dxs| %.3e"
+           % dxs)
+    _check(riccati_backward.launches > 0,
+           "solve_batched with K3: K3 not launched")
+    out["double_integrator_f64"] = dict(
+        max_dxs=dxs, iterations=r_k3.iterations.tolist(),
+        riccati=_split_counts("riccati", riccati_backward),
+        riccati_widths=_routed_widths("K3", riccati_backward,
+                                      RICCATI_TILE_MAX_B[2, 1]))
+    return out
+
+
+# seconds each phase took, by its function's name (``_timed``)
+PHASE_SECONDS = {}
+
+
+def _timed(phase, device) -> dict:
+    """``phase(device)``, its seconds kept in ``PHASE_SECONDS``."""
+    t0 = time.perf_counter()
+    out = phase(device)
+    PHASE_SECONDS[phase.__name__] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2716,60 +3126,66 @@ def main() -> int:
           flush=True)
     print("# phase 0 ptxas: %s" % json.dumps(report["kernels"]), flush=True)
 
-    k1 = phase_k1(device)
+    k1 = _timed(phase_k1, device)
     print("# phase 1 K1 fused_ip vs plain: %s" % json.dumps(k1), flush=True)
-    k2 = phase_k2(device)
+    k2 = _timed(phase_k2, device)
     print("# phase 2 K2 batched_solve vs plain: %s" % json.dumps(k2),
           flush=True)
-    mp = phase_main(device)
+    mp = _timed(phase_main, device)
     print("# phase 3 main path: %s" % json.dumps(mp), flush=True)
-    k3 = phase_k3(device)
+    k3 = _timed(phase_k3, device)
     print("# phase 4 K3 riccati vs plain: %s" % json.dumps(k3), flush=True)
-    k4 = phase_k4(device)
+    k4 = _timed(phase_k4, device)
     print("# phase 5 K4 fused_rollout vs plain: %s" % json.dumps(k4),
           flush=True)
-    nw = phase_new_path(device)
+    nw = _timed(phase_new_path, device)
     print("# phase 6 main path with K3 and K4: %s" % json.dumps(nw),
           flush=True)
-    k1n = phase_k1n(device)
+    k1n = _timed(phase_k1n, device)
     print("# phase 7 K1n fused_ip nz=35 and K2 (35, 13) vs plain: %s"
           % json.dumps(k1n), flush=True)
-    pu = phase_push(device)
+    pu = _timed(phase_push, device)
     print("# phase 8 planar-push main path: %s" % json.dumps(pu),
           flush=True)
-    k1a = phase_k1a(device)
+    k1a = _timed(phase_k1a, device)
     print("# phase 9 K1a fused_ip nz=6 and K2 (6, 6) vs plain: %s"
           % json.dumps(k1a), flush=True)
-    ac = phase_acrobot(device)
+    ac = _timed(phase_acrobot, device)
     print("# phase 10 acrobot main path: %s" % json.dumps(ac), flush=True)
-    k5 = phase_k5(device)
+    k5 = _timed(phase_k5, device)
     print("# phase 11 K5 loop_overhead vs plain: %s" % json.dumps(k5),
           flush=True)
-    hk = phase_hopper_kernels(device)
+    hk = _timed(phase_hopper_kernels, device)
     print("# phase 12 K2 (20, 1), (20, 13) and K3 (16, 10) vs plain: %s"
           % json.dumps(hk), flush=True)
-    ho = phase_hopper(device)
+    ho = _timed(phase_hopper, device)
     print("# phase 13 hopper main path: %s" % json.dumps(ho), flush=True)
-    rk = phase_rocket_kernels(device)
+    rk = _timed(phase_rocket_kernels, device)
     print("# phase 14 K2 (10, 1), (10, 4), (12, 1), (12, 16) vs plain: %s"
           % json.dumps(rk), flush=True)
-    ro = phase_rocket(device)
+    ro = _timed(phase_rocket, device)
     print("# phase 15 rocket main path: %s" % json.dumps(ro), flush=True)
-    kr = phase_k1_rocket(device)
+    kr = _timed(phase_k1_rocket, device)
     print("# phase 16 K1 fused_ip rocket_projection vs plain: %s"
           % json.dumps(kr), flush=True)
-    kh = phase_k1_hopper(device)
+    kh = _timed(phase_k1_hopper, device)
     print("# phase 17 K1 fused_ip hopper vs plain: %s" % json.dumps(kh),
           flush=True)
-    sc = phase_scalar(device)
+    sc = _timed(phase_scalar, device)
     print("# phase 18 scalar path: %s" % json.dumps(sc), flush=True)
-    gb = phase_gb(device)
+    gb = _timed(phase_gb, device)
     print("# phase 19 gradient bundle: %s" % json.dumps(gb), flush=True)
-    di = phase_direct(device)
+    di = _timed(phase_direct, device)
     print("# phase 20 hopper direct transcription: %s" % json.dumps(di),
           flush=True)
-    sw = phase_sweep(device)
+    sw = _timed(phase_sweep, device)
     print("# phase 21 scenario sweep: %s" % json.dumps(sw), flush=True)
+    xv = _timed(phase_executor, device)
+    print("# phase 22 executor variants: %s" % json.dumps(xv), flush=True)
+    print("# phase seconds: %s" % json.dumps(dict(
+        build=round(build_s, 1), **{k: round(v, 1)
+                                    for k, v in PHASE_SECONDS.items()})),
+          flush=True)
 
     src = "optimization_dynamics_tpu_torch/ops/kernels/csrc/"
     tpu = "optimization_dynamics_tpu/ops/pallas/"
@@ -3003,7 +3419,7 @@ def main() -> int:
     for k in kernels:
         if k["name"] in sc["launches"]:
             k["launches_scalar"] = sc["launches"][k["name"]]
-    # phase 21's cold deploy sweep (two shards of 128): K1 by kernel, K2
+    # phase 21's cold deploy sweep (one shard of 128): K1 by kernel, K2
     # at (10, 8) by kernel
     by_name = dict.fromkeys(("fused_ip", "fused_ip_tile", "batched_solve",
                              "batched_solve_tile"), 0)
@@ -3018,6 +3434,31 @@ def main() -> int:
     for k in kernels:
         if k["name"] in by_name:
             k["launches_sweep"] = by_name[k["name"]]
+    # phase 22: K3 at (2, 1) and (4, 2), each kernel forced, with its
+    # launches at (2, 1) in solve_batched on the double integrator (no
+    # solve runs (4, 2)); K1's and K2's launches over the six executor
+    # variants at B=512
+    k3_di = xv["double_integrator_f64"]["riccati"]
+    variants = [v for name, v in xv["full_f32_512"].items()
+                if not name.endswith("_k3_k4")]
+    by_name = {"fused_ip": sum(v["fused_ip"] for v in variants),
+               "fused_ip_tile": sum(v["fused_ip_tile"] for v in variants),
+               "batched_solve": sum(v["batched_solve"] for v in variants),
+               "batched_solve_tile": 0}
+    for k in kernels:
+        if k["name"] in ("riccati", "riccati_tile"):
+            route = "tile" if k["name"] == "riccati_tile" else "thread"
+            for shape in ("2_1", "4_2"):
+                c = xv["k3"]["f32_" + shape]
+                k.update({"ms_" + shape: c[route]["ms"],
+                          "ms_device_" + shape: c[route]["ms_device"],
+                          "plain_ms_" + shape: c["plain_ms"],
+                          "bound_ms_" + shape: c["bound_ms"],
+                          "max_abs_err_" + shape: c[route]["max_abs_err"]})
+            k["launches_2_1"] = k3_di[k["name"]]
+            k["launches_4_2"] = 0
+        if k["name"] in by_name:
+            k["launches_executor_variants"] = by_name[k["name"]]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -46,6 +46,7 @@ from optimization_dynamics_tpu_torch.solver.ilqr import (
     solve,
 )
 from optimization_dynamics_tpu_torch.solver.interior_point import IPOptions
+from optimization_dynamics_tpu_torch.solver.ilqr_batched import solve_batched
 from optimization_dynamics_tpu_torch.solver.ilqr_segmented import (
     make_segmented_solver,
 )
@@ -175,6 +176,15 @@ def build_deploy_problem(device, dtype=None, friction=(0.35, 0.35),
     if fused_rollout:
         prob = prob._replace(rollout_fused=make_fused_rollout(
             model, IPOptions(**ip), aux, T, prob.u_mask, device, dtype))
+    # the costs as sums of squares: vmapped, a dot product is a cuBLAS
+    # batched product whose kernel follows the batch count, so a lane's
+    # cost would move in its last bits with the rollout's width (on the
+    # CPU both forms give the same bits)
+    xT = torch.tensor([0.0, math.pi, 0.0, math.pi], dtype=dtype,
+                      device=device)
+    prob = prob._replace(
+        stage_cost=lambda t, x, u: torch.sum(u * u),
+        terminal_cost=lambda x: torch.sum((x - xT) ** 2))
     opts = dataclasses.replace(opts, con_tol=0.01, rho_max=1.0e6,
                                alpha_min=1.0e-2)
     return prob, x0, us0, opts
@@ -224,7 +234,8 @@ def visualize_solution(res):
     return maybe_visualize("cartpole", state_to_configuration(res.xs), dt=H)
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
+    """``main``'s command line."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--deploy", action="store_true",
                     help="run the lane-batched deploy solve (default: the "
@@ -240,27 +251,75 @@ def main(argv=None):
                     help="with --deploy: every rollout in one K4 launch")
     ap.add_argument("--riccati-kernel", action="store_true",
                     help="with --deploy: the backward pass in one K3 launch")
+    # the executor's variants (the reference bench's ODX_BENCH_K,
+    # ODX_BENCH_PLA and variant_batched)
+    ap.add_argument("--iters-per-dispatch", type=int, default=1,
+                    help="with --deploy: K inner iterations a call")
+    ap.add_argument("--per-lane-alpha", choices=("host", "device"),
+                    default=None,
+                    help="with --deploy: one alpha a lane a rung (host) or "
+                         "the one-call adaptive iteration (device)")
+    ap.add_argument("--single-stage-ls", action="store_true",
+                    help="with --deploy: the full Armijo grid every "
+                         "iteration (no line-search cascade)")
+    ap.add_argument("--monolithic", action="store_true",
+                    help="with --deploy: the lockstep solve_batched (full "
+                         "grid, no compaction, no schedule, no stall "
+                         "policy)")
     args = ap.parse_args(argv)
-    if (args.fused_rollout or args.riccati_kernel) and not args.deploy:
-        ap.error("--fused-rollout and --riccati-kernel need --deploy")
+    variant = (args.iters_per_dispatch != 1 or args.per_lane_alpha
+               or args.single_stage_ls or args.monolithic)
+    if (args.fused_rollout or args.riccati_kernel or variant) \
+            and not args.deploy:
+        ap.error("--fused-rollout, --riccati-kernel and the executor "
+                 "variants need --deploy")
+    if args.monolithic and (args.iters_per_dispatch != 1
+                            or args.per_lane_alpha or args.single_stage_ls):
+        ap.error("--monolithic takes no executor option")
+    return args
+
+
+def _device_dtype(args):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("cartpole: no CUDA device; pass --device cpu to "
                          "run the plain versions on the CPU")
-    dtype = {None: None, "f32": torch.float32,
-             "f64": torch.float64}[args.dtype]
+    return device, {None: None, "f32": torch.float32,
+                    "f64": torch.float64}[args.dtype]
 
+
+def main(argv=None):
+    """The scalar swing-ups (``main_scalar``), or with ``--deploy`` the
+    lane-batched deploy solve (``deploy``); returns the result."""
+    args = parse_args(argv)
     if not args.deploy:
+        device, dtype = _device_dtype(args)
         return main_scalar(device, dtype or torch.float64)
+    return deploy(args)[0]
+
+
+def deploy(args: argparse.Namespace):
+    """The deploy solve of ``parse_args``'s flags, timed to the card's
+    end and printed: returns (result, wall seconds, ``solve.stats``)."""
+    device, dtype = _device_dtype(args)
     prob, x0, us0, opts = build_deploy_problem(
         device, dtype=dtype, fused_rollout=args.fused_rollout)
     opts = dataclasses.replace(opts, riccati_kernel=args.riccati_kernel)
     B = args.batch
     x0s = deploy_x0s(x0, B, args.seed)
-    solve_b = make_segmented_solver(
-        prob, opts, B, x0.dtype, device,
-        max_iter_schedule=DEPLOY_MAX_ITER_SCHEDULE,
-        al_stall_rounds=DEPLOY_AL_STALL_ROUNDS)
+    if args.monolithic:
+        def solve_b(x0s, us0):
+            return solve_batched(prob, x0s, us0, opts)
+        solve_b.stats = {}
+    else:
+        solve_b = make_segmented_solver(
+            prob, opts, B, x0.dtype, device,
+            two_stage_ls=not args.single_stage_ls,
+            iters_per_dispatch=args.iters_per_dispatch,
+            per_lane_alpha={None: False, "host": True,
+                            "device": "device"}[args.per_lane_alpha],
+            max_iter_schedule=DEPLOY_MAX_ITER_SCHEDULE,
+            al_stall_rounds=DEPLOY_AL_STALL_ROUNDS)
     if device.type == "cuda":
         from optimization_dynamics_tpu_torch.ops.kernels._build import (
             load_library,
@@ -277,8 +336,9 @@ def main(argv=None):
     n_conv = int(conv.sum())
     mean_obj = float(obj[conv].mean()) if n_conv else float("nan")
     print("device=%s dtype=%s batch=%d fused_rollout=%s riccati_kernel=%s"
-          % (device, x0.dtype, B, prob.rollout_fused is not None,
-             opts.riccati_kernel))
+          " executor=%s" % (device, x0.dtype, B,
+                            prob.rollout_fused is not None,
+                            opts.riccati_kernel, _executor_name(args)))
     print("converged %d/%d (%.4f)" % (n_conv, B, n_conv / B))
     print("mean converged objective %.6f" % mean_obj)
     print("wall %.3f s, %.4f converged solves/s" % (wall, n_conv / wall))
@@ -286,7 +346,22 @@ def main(argv=None):
           % (float(res.iterations.float().mean()),
              int(res.al_iterations[0])))
     print("stats %s" % dict(solve_b.stats))
-    return res
+    return res, wall, dict(solve_b.stats)
+
+
+def _executor_name(args) -> str:
+    """The deploy's executor variant, named as the reference bench names
+    it."""
+    if args.monolithic:
+        return "monolithic batched"
+    name = "segmented"
+    if args.single_stage_ls:
+        name += " single-stage"
+    if args.iters_per_dispatch != 1:
+        name += " k=%d" % args.iters_per_dispatch
+    if args.per_lane_alpha:
+        name += " pla" if args.per_lane_alpha == "host" else " pla-dev"
+    return name
 
 
 if __name__ == "__main__":

@@ -96,8 +96,8 @@ FUSED_ROLLOUT_FUNCTORS = {"cartpole_friction": (2, 1)}  # name -> (nq, nu)
 BATCHED_SOLVE_SHAPES = frozenset({(10, 8), (10, 1), (35, 13), (6, 6),
                                   (2, 1), (2, 6), (20, 1), (20, 13),
                                   (12, 1), (12, 16), (10, 4)})  # (n, k)
-RICCATI_SHAPES = frozenset({(4, 1), (4, 3), (6, 3), (10, 4),
-                            (16, 10)})  # (nx, nu)
+RICCATI_SHAPES = frozenset({(2, 1), (4, 1), (4, 2), (4, 3), (6, 3),
+                            (10, 4), (16, 10)})  # (nx, nu)
 # K2 above this many unknowns runs one 64-thread block a system
 # (csrc/odt_common.cuh, UNROLL_MAX_N); at or below, a tile kernel and a
 # per-thread kernel
@@ -130,12 +130,20 @@ UNROLL_MAX_N = 16
 # the end of the sweep. The shapes not swept take the cut of their
 # swept neighbour, or the lower of the two (guessed, not measured): the
 # acrobot-without-limits shapes (2, 1), (2, 6) that of (10, 8); K3's
-# (4, 3) and (6, 3) that of (10, 4).
+# (4, 3) and (6, 3) that of (10, 4). K3 at the reference's kernel-test
+# shapes, swept from 3 (the double integrator's solve) to 409,600 (T=51):
+# at (4, 2) the tile wins at every width (0.052 against 0.095 ms queued
+# at 3, 5.8 against 10.9 at 409,600), so its cut is the end of the sweep;
+# at (2, 1), where the tile has 4 threads, the per-thread kernel wins up
+# to 25,600 (0.028 against 0.036 ms queued at 3, 0.132 against 0.141 at
+# 25,600) and loses only from 102,400, a width no solve sends, so its
+# cut is 0.
 BATCHED_SOLVE_TILE_MAX_B = {(10, 8): 0, (10, 1): 0, (6, 6): 409600,
                             (2, 1): 0, (2, 6): 0, (12, 1): 0,
                             (12, 16): 61440, (10, 4): 3840}  # (n, k) -> B
-RICCATI_TILE_MAX_B = {(4, 1): 409600, (4, 3): 6400, (6, 3): 6400,
-                      (10, 4): 6400, (16, 10): 102400}  # (nx, nu) -> B
+RICCATI_TILE_MAX_B = {(2, 1): 0, (4, 1): 409600, (4, 2): 409600,
+                      (4, 3): 6400, (6, 3): 6400, (10, 4): 6400,
+                      (16, 10): 102400}  # (nx, nu) -> B
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 

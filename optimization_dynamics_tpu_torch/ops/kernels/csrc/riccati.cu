@@ -1,4 +1,5 @@
-// K3, the per-thread kernel (riccati.cuh) at the shapes up to (10, 4).
+// K3, the per-thread kernel (riccati.cuh) at every shape of
+// RICCATI_SHAPES but (16, 10), which has sources of its own.
 // Replaces the Pallas kernel of optimization_dynamics_tpu/ops/
 // pallas/riccati.py (make_riccati_backward); the design is in riccati.cuh
 // and ops/kernels/riccati.py.
@@ -6,8 +7,12 @@
 
 // one line per (nx, nu) of RICCATI_SHAPES in ops/kernels/_build.py
 extern "C" {
+ODT_RICCATI(2, 1, f32, float)
+ODT_RICCATI(2, 1, f64, double)
 ODT_RICCATI(4, 1, f32, float)
 ODT_RICCATI(4, 1, f64, double)
+ODT_RICCATI(4, 2, f32, float)
+ODT_RICCATI(4, 2, f64, double)
 ODT_RICCATI(4, 3, f32, float)
 ODT_RICCATI(4, 3, f64, double)
 ODT_RICCATI(6, 3, f32, float)

@@ -3,8 +3,12 @@
 
 // one line per (nx, nu) of RICCATI_SHAPES in ops/kernels/_build.py
 extern "C" {
+ODT_RICCATI_TILE(2, 1, f32, float)
+ODT_RICCATI_TILE(2, 1, f64, double)
 ODT_RICCATI_TILE(4, 1, f32, float)
 ODT_RICCATI_TILE(4, 1, f64, double)
+ODT_RICCATI_TILE(4, 2, f32, float)
+ODT_RICCATI_TILE(4, 2, f64, double)
 ODT_RICCATI_TILE(4, 3, f32, float)
 ODT_RICCATI_TILE(4, 3, f64, double)
 ODT_RICCATI_TILE(6, 3, f32, float)

@@ -107,11 +107,18 @@ class ILQRProblem(NamedTuple):
     (True) or start cold and only hand their variables to the next
     derivative sweep (False).
 
+    ``ws_carry``: with ``ws_linesearch`` False, the batched open-loop and
+    line-search rollouts warm-start each step t from the same rollout's
+    step t-1 solver variables (step 0 from ``ws_init_batched``), the
+    lane-batched analog of ``dynamics_carry``; the carry stays on the
+    trajectory being rolled out. Read only when ``ws_linesearch`` is
+    False.
+
     ``rollout_fused(x0s, xss_ref, uss_ref, Kss, kss, alphas) -> (xss, uss,
     wss)``: a whole closed-loop rollout in one kernel (K4, ops/kernels/
     fused_rollout.py); when set, both rollouts of the phases run through
-    it. It implements the cold line-search policy (``ws_linesearch``
-    False).
+    it. It implements the cold line-search policy (``ws_linesearch`` and
+    ``ws_carry`` False).
     """
 
     T: int
@@ -138,6 +145,7 @@ class ILQRProblem(NamedTuple):
     dynamics_jac_batched_ws: Optional[Callable] = None
     ws_init_batched: Optional[Callable] = None
     ws_linesearch: bool = True
+    ws_carry: bool = False
     rollout_fused: Optional[Callable] = None
 
 

@@ -1,20 +1,28 @@
-"""Batched-native AL-iLQR phase functions: lockstep scenario batches.
+"""Batched-native AL-iLQR: lockstep scenario batches.
 
-Port of ``optimization_dynamics_tpu/solver/ilqr_batched.py::make_phases``
-restricted to what the segmented executor's line-search cascade needs:
-the open- and closed-loop rollouts, the trajectory cost, the derivative
-sweep, the Riccati backward pass, the (lane x alpha) grid line search,
-the cascade (``ls_prep`` / ``ls_rungs`` / ``ls_apply``) and the AL
-bookkeeping (constraint violation, dual update, smooth cost).
+Port of ``optimization_dynamics_tpu/solver/ilqr_batched.py``.
+``make_phases`` builds the phase functions: the open- and closed-loop
+rollouts, the trajectory cost, the derivative sweep, the Riccati backward
+pass, the (lane x alpha) grid line searches, the inner steps built on
+them (full grid, the first two alphas, the first four), the incremental
+line-search cascade (``ls_prep`` / ``ls_rungs`` / ``ls_apply``), the
+per-lane-alpha rungs (``ls_prep_at`` / ``ls_rung_at``), the one-call
+adaptive inner step (``inner_step_adaptive``), k inner iterations as one
+call (``make_inner_scan``) and the AL bookkeeping (constraint violation,
+dual update, smooth cost). The segmented executor
+(``ilqr_segmented.py``) drives these phases; ``solve_batched``, the
+lockstep solver (one full-grid inner step a iteration for the whole
+batch, inside the AL rounds), is that executor with only its full-grid
+branch on.
 
 Every phase works on lane-batched tensors (batch first) and computes each
 lane independently; the time loops are Python loops over batched ops,
 except where a kernel takes a whole loop: ``ILQROptions.riccati_kernel``
 runs the backward pass as K3 and ``ILQRProblem.rollout_fused`` both
-rollouts as K4.
-The monolithic ``solve_batched``, the ``iters_per_dispatch`` scan, the
-per-lane adaptive line searches and the cross-time ``ws_carry`` are not
-ported.
+rollouts as K4. Where the reference keeps a loop on the device
+(``while_loop``, ``lax.cond``, ``lax.scan``), the port runs it on the host
+and reads the loop's flag there, one read a pass, with the same
+decisions.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from optimization_dynamics_tpu_torch.ops.kernels.riccati import (
 from optimization_dynamics_tpu_torch.solver.ilqr import (
     ILQROptions,
     ILQRProblem,
+    ILQRResult,
     _al_multiplier,
     _cholesky_gains,
     _make_al_costs,
@@ -38,7 +47,7 @@ from optimization_dynamics_tpu_torch.solver.ilqr import (
     _violation,
 )
 
-__all__ = ["make_phases"]
+__all__ = ["solve_batched", "make_phases"]
 
 
 def make_phases(prob: ILQRProblem, opts: ILQROptions, B: int, dtype,
@@ -61,6 +70,9 @@ def make_phases(prob: ILQRProblem, opts: ILQROptions, B: int, dtype,
     # sweeps hand their solver variables to the next sweep
     has_bws = (prob.dynamics_batched_ws is not None
                and prob.ws_init_batched is not None)
+    # cross-time carry: step t of a rollout warm-starts from the same
+    # rollout's step t-1 solution; only with cold line-search rollouts
+    ws_carry = has_bws and prob.ws_carry and not prob.ws_linesearch
 
     def _stage_costs(xss, uss, lams, rhos):
         """Stage AL costs (T-1, Bw) of states xss (Bw, >=T-1, nx)."""
@@ -76,10 +88,11 @@ def make_phases(prob: ILQRProblem, opts: ILQROptions, B: int, dtype,
         ``wss (Bw, T-1, nws)`` seeding the first sweep."""
         xs = x0s
         ys_all, ws_all = [], []
+        ws = prob.ws_init_batched(0, x0s, uss[:, 0]) if ws_carry else None
         for t in range(T - 1):
             us = uss[:, t]
             if has_bws:
-                ws0 = prob.ws_init_batched(t, xs, us)
+                ws0 = ws if ws_carry else prob.ws_init_batched(t, xs, us)
                 ys, ws = prob.dynamics_batched_ws(t, xs, us, ws0)
             else:
                 ys = prob.dynamics_batched(t, xs, us)
@@ -95,20 +108,38 @@ def make_phases(prob: ILQRProblem, opts: ILQROptions, B: int, dtype,
         Js = _stage_costs(xss, uss, lams, rhos)
         return torch.sum(Js, dim=0) + terminal_al_v(xss[:, -1], lamTs, rhos)
 
+    if torch.device(device).type == "cuda":
+        # K dx as a product and a sum over the state, not a batched
+        # matmul: cuBLAS picks that kernel by the batch count, so a lane's
+        # controls would move in their last bits with the width it is
+        # rolled at (a rung of B lanes against a slice of 2B), and its
+        # line-search decision with them. The CPU's batched product is
+        # the same at any width.
+        def feedback(K, dx):
+            return torch.sum(K * dx[:, None], dim=2)
+    else:
+        def feedback(K, dx):
+            return torch.einsum("bij,bj->bi", K, dx)
+
     def closed_loop(xss_ref, uss_ref, Kss, kss, alphas, lams, lamTs, rhos,
                     wss):
         """alphas: (Bw,). Returns xss, uss, Js, wss_new."""
         xs = xss_ref[:, 0]
         xs_all, us_all, ws_all = [], [], []
+        ws_new = (prob.ws_init_batched(0, xs, uss_ref[:, 0]) if ws_carry
+                  else None)
         for t in range(T - 1):
             us_ref_t = uss_ref[:, t]
             us = (us_ref_t + alphas[:, None] * kss[:, t]
-                  + torch.einsum("bij,bj->bi", Kss[:, t],
-                                 xs - xss_ref[:, t]))
+                  + feedback(Kss[:, t], xs - xss_ref[:, t]))
             us = torch.where(prob.u_mask[t][None], us, us_ref_t)
             if has_bws:
-                ws0 = (wss[:, t] if prob.ws_linesearch
-                       else prob.ws_init_batched(t, xs, us))
+                if prob.ws_linesearch:
+                    ws0 = wss[:, t]
+                elif ws_carry:
+                    ws0 = ws_new
+                else:
+                    ws0 = prob.ws_init_batched(t, xs, us)
                 ys, ws_new = prob.dynamics_batched_ws(t, xs, us, ws0)
             else:
                 ys = prob.dynamics_batched(t, xs, us)
@@ -134,10 +165,10 @@ def make_phases(prob: ILQRProblem, opts: ILQROptions, B: int, dtype,
     if prob.rollout_fused is not None:
         # both rollouts as one K4 launch, costs as the loop above sums
         # them, so a float64 solve is the same with K4 on or off
-        if prob.ws_linesearch:
+        if prob.ws_linesearch or prob.ws_carry:
             raise ValueError("rollout_fused implements the cold line-search "
                              "policy (per-step init_z starts); set "
-                             "ws_linesearch=False")
+                             "ws_linesearch=False and ws_carry=False")
         fused_roll = prob.rollout_fused
 
         def closed_loop(xss_ref, uss_ref, Kss, kss, alphas, lams, lamTs,
@@ -230,6 +261,14 @@ def make_phases(prob: ILQRProblem, opts: ILQROptions, B: int, dtype,
     alpha_grid = torch.tensor([0.5 ** i for i in range(n_alpha)],
                               dtype=dtype, device=device)
 
+    def _armijo_ok(J_c, J_ref, alphas, dV1, dV2):
+        """Finite and with sufficient decrease against the backward pass's
+        expected change ``alpha dV1 + alpha^2 dV2`` (arguments broadcast:
+        a lane's grid or one alpha a lane)."""
+        expected = alphas * dV1 + alphas ** 2 * dV2
+        return torch.isfinite(J_c) & (
+            J_c <= J_ref + opts.armijo_c1 * torch.clamp_max(expected, 0.0))
+
     def _make_line_search(grid):
         A = int(grid.shape[0])
 
@@ -244,11 +283,8 @@ def make_phases(prob: ILQRProblem, opts: ILQROptions, B: int, dtype,
                 rep(xss), rep(uss), rep(Kss), rep(kss), alphas_flat,
                 rep(lams), rep(lamTs), rep(rhos), rep(wss))
             Js_c = Js_c.reshape(Bw, A)
-            expected = (grid[None] * dV1[:, None]
-                        + grid[None] ** 2 * dV2[:, None])
-            ok = torch.isfinite(Js_c) & (
-                Js_c <= Js[:, None]
-                + opts.armijo_c1 * torch.clamp_max(expected, 0.0))
+            ok = _armijo_ok(Js_c, Js[:, None], grid[None], dV1[:, None],
+                            dV2[:, None])
             accepted = ok.any(dim=1)
             # first True: argmax over an int cast (first maximal index)
             pick = torch.argmax(ok.to(torch.int32), dim=1)
@@ -258,6 +294,79 @@ def make_phases(prob: ILQRProblem, opts: ILQROptions, B: int, dtype,
                     wss_c[sel])
 
         return line_search
+
+    def ls_apply(xss, uss, Js, regs, wss, active, cand, qu_inf, bp_ok):
+        """Accept/reject bookkeeping of one iteration from its line-search
+        pick ``cand = (xss, uss, Js, accepted, wss)``: returns the updated
+        (xss, uss, Js, regs, wss), the per-lane convergence signals, the
+        backward pass's gradient norm |Qu|_inf and ``ok_lanes``
+        (accepted-or-inactive: all-True means a quick pass needs no
+        full-grid fallback)."""
+        xss_n, uss_n, Js_n, accepted, wss_n = cand
+        ls_failed = ~(accepted & bp_ok)
+        regs_n = torch.where(
+            ls_failed,
+            torch.clamp_max(regs * opts.reg_up, opts.reg_max),
+            torch.clamp_min(regs * opts.reg_down, opts.reg_min))
+        keep = ls_failed | ~active
+        xss_n = torch.where(keep[:, None, None], xss, xss_n)
+        uss_n = torch.where(keep[:, None, None], uss, uss_n)
+        Js_n = torch.where(keep, Js, Js_n)
+        regs_n = torch.where(active, regs_n, regs)
+        wss_n = torch.where(keep[:, None, None], wss, wss_n)
+
+        grad_small = qu_inf < opts.grad_tol
+        obj_small = torch.abs(Js - Js_n) < opts.obj_tol
+        reg_capped = regs_n >= opts.reg_max
+        newly_done = grad_small | (accepted & obj_small) | (
+            ls_failed & reg_capped)
+        ok_lanes = (accepted & bp_ok) | ~active
+        return (xss_n, uss_n, Js_n, regs_n, wss_n, newly_done,
+                qu_inf, ok_lanes)
+
+    line_search = _make_line_search(alpha_grid)
+    # The full grid picks the FIRST Armijo-passing alpha, so whenever every
+    # active lane accepts within the first two (or four) alphas the pick
+    # equals the full grid's: the quick and mid grids.
+    line_search_quick = _make_line_search(alpha_grid[:min(2, n_alpha)])
+    line_search_mid = _make_line_search(alpha_grid[:min(4, n_alpha)])
+
+    def _make_inner_step(ls):
+        def inner_step(xss, uss, Js, regs, lams, lamTs, rhos, active,
+                       wss):
+            """One iLQR iteration for every active lane: sweep, backward
+            pass, the line search ``ls``, then ``ls_apply``."""
+            d = derivatives(xss, uss, lams, lamTs, rhos, wss)
+            Kss, kss, dV1, dV2, qu_inf, bp_ok = backward(*d, regs)
+            cand = ls(xss, uss, Kss, kss, Js, dV1, dV2, lams, lamTs, rhos,
+                      wss)
+            return ls_apply(xss, uss, Js, regs, wss, active, cand, qu_inf,
+                            bp_ok)
+
+        return inner_step
+
+    inner_step = _make_inner_step(line_search)
+    inner_step_quick = _make_inner_step(line_search_quick)
+    # None when the full grid is already <= 4 alphas (mid == full)
+    inner_step_mid = (_make_inner_step(line_search_mid)
+                      if n_alpha > 4 else None)
+
+    def _take_first(cand, new):
+        """Merge a rung's candidates into ``cand``: a lane takes the new
+        one only if it accepts there and had not accepted before."""
+        xs_c, us_c, J_c, acc_c, ws_c = new
+        xs_b, us_b, J_b, acc_b, ws_b = cand
+        take = acc_c & ~acc_b
+        return (torch.where(take[:, None, None], xs_c, xs_b),
+                torch.where(take[:, None, None], us_c, us_b),
+                torch.where(take, J_c, J_b), acc_b | acc_c,
+                torch.where(take[:, None, None], ws_c, ws_b))
+
+    def _merge(cand, new, active):
+        """``_take_first`` and ``covered``: every active lane has
+        accepted (a 0-dim bool tensor)."""
+        cand = _take_first(cand, new)
+        return cand, (cand[3] | ~active).all()
 
     # Incremental line-search cascade: the gains are computed once per
     # iteration (ls_prep), then DISJOINT alpha slices {1,.5} -> {.25,.125}
@@ -290,45 +399,139 @@ def make_phases(prob: ILQRProblem, opts: ILQROptions, B: int, dtype,
         def ls_rung(xss, uss, Kss, kss, Js, dV1, dV2, lams, lamTs, rhos,
                     wss, cand, active):
             """Roll slice ``i`` and merge first-accepts into ``cand``."""
-            xs_c, us_c, J_c, acc_c, ws_c = ls(
-                xss, uss, Kss, kss, Js, dV1, dV2, lams, lamTs, rhos, wss)
-            xs_b, us_b, J_b, acc_b, ws_b = cand
-            take = acc_c & ~acc_b
-            xs_b = torch.where(take[:, None, None], xs_c, xs_b)
-            us_b = torch.where(take[:, None, None], us_c, us_b)
-            J_b = torch.where(take, J_c, J_b)
-            ws_b = torch.where(take[:, None, None], ws_c, ws_b)
-            acc_b = acc_b | acc_c
-            covered = (acc_b | ~active).all()
-            return (xs_b, us_b, J_b, acc_b, ws_b), covered
+            return _merge(cand, ls(xss, uss, Kss, kss, Js, dV1, dV2, lams,
+                                   lamTs, rhos, wss), active)
 
         return ls_rung
 
     ls_rungs = [_make_ls_rung(i) for i in range(1, len(ls_slices))]
 
-    def ls_apply(xss, uss, Js, regs, wss, active, cand, qu_inf, bp_ok):
-        """Accept/reject bookkeeping with the merged cascade candidate."""
-        xss_n, uss_n, Js_n, accepted, wss_n = cand
-        ls_failed = ~(accepted & bp_ok)
-        regs_n = torch.where(
-            ls_failed,
-            torch.clamp_max(regs * opts.reg_up, opts.reg_max),
-            torch.clamp_min(regs * opts.reg_down, opts.reg_min))
-        keep = ls_failed | ~active
-        xss_n = torch.where(keep[:, None, None], xss, xss_n)
-        uss_n = torch.where(keep[:, None, None], uss, uss_n)
-        Js_n = torch.where(keep, Js, Js_n)
-        regs_n = torch.where(active, regs_n, regs)
-        wss_n = torch.where(keep[:, None, None], wss, wss_n)
+    # Per-lane alpha: ONE alpha a lane a rung, ``ais`` (grid indices) an
+    # input, so one function serves every rung.
+    def _line_search_at(xss, uss, Kss, kss, Js, dV1, dV2, lams, lamTs,
+                        rhos, wss, ais):
+        """One rollout at per-lane alphas ``alpha_grid[ais]``."""
+        alphas = alpha_grid[ais]
+        xss_c, uss_c, Js_c, wss_c = closed_loop(
+            xss, uss, Kss, kss, alphas, lams, lamTs, rhos, wss)
+        return (xss_c, uss_c, Js_c,
+                _armijo_ok(Js_c, Js, alphas, dV1, dV2), wss_c)
 
-        grad_small = qu_inf < opts.grad_tol
-        obj_small = torch.abs(Js - Js_n) < opts.obj_tol
-        reg_capped = regs_n >= opts.reg_max
-        newly_done = grad_small | (accepted & obj_small) | (
-            ls_failed & reg_capped)
-        ok_lanes = (accepted & bp_ok) | ~active
-        return (xss_n, uss_n, Js_n, regs_n, wss_n, newly_done,
-                qu_inf, ok_lanes)
+    def ls_rung_at(xss, uss, Kss, kss, Js, dV1, dV2, lams, lamTs, rhos,
+                   wss, cand, active, ais):
+        """Roll per-lane alphas ``ais`` and merge first-accepts."""
+        return _merge(cand, _line_search_at(xss, uss, Kss, kss, Js, dV1,
+                                            dV2, lams, lamTs, rhos, wss,
+                                            ais), active)
+
+    def ls_prep_at(xss, uss, Js, regs, lams, lamTs, rhos, active, wss,
+                   ais):
+        """Derivative sweep + backward pass + the first per-lane rung
+        (each lane at alpha index ``ais``)."""
+        d = derivatives(xss, uss, lams, lamTs, rhos, wss)
+        Kss, kss, dV1, dV2, qu_inf, bp_ok = backward(*d, regs)
+        cand0 = (xss, uss, Js,
+                 torch.zeros(xss.shape[0], dtype=torch.bool, device=device),
+                 wss)
+        cand, covered = ls_rung_at(xss, uss, Kss, kss, Js, dV1, dV2, lams,
+                                   lamTs, rhos, wss, cand0, active, ais)
+        return Kss, kss, dV1, dV2, qu_inf, bp_ok, cand, covered
+
+    # The adaptive inner step, one call an iteration with alpha memory:
+    # rung 0 rolls a per-lane TWO-alpha window {1.0, alpha_grid[ais]} as
+    # one 2B-lane rollout (alpha=1 is always tried, which keeps the
+    # obj_tol done-criterion honest); then ONE further per-lane candidate
+    # a rung (grid order, skipping the two already tried) only while some
+    # active lane has no accept. Accepted lanes remember max(index - 1,
+    # 1). Not decision-identical to the grid: indices strictly between 1.0
+    # and alpha_grid[ais] are tried only in the fallback, so a lane can
+    # step smaller than the grid's first-passing alpha.
+    def inner_step_adaptive(xss, uss, Js, regs, lams, lamTs, rhos,
+                            active, wss, ais):
+        """``ais (Bw,)`` integer indices in ``[1, n_alpha-1]``. Returns the
+        ``inner_step`` outputs plus ``ais_next`` and ``depth`` (1 +
+        fallback rungs rolled, a Python int: the fallback's condition is
+        read on the host once a rung)."""
+        Bw = xss.shape[0]
+        lanes = torch.arange(Bw, device=device)
+        ais = torch.clamp(ais.to(torch.int64), 1, n_alpha - 1)
+        d = derivatives(xss, uss, lams, lamTs, rhos, wss)
+        Kss, kss, dV1, dV2, qu_inf, bp_ok = backward(*d, regs)
+
+        # rung 0: lane b on rows 2b (alpha 1) and 2b + 1 (alpha_grid[ais])
+        idx2 = torch.stack([torch.zeros_like(ais), ais], 1).reshape(-1)
+        alphas2 = alpha_grid[idx2]
+        rep = lambda a: torch.repeat_interleave(a, 2, dim=0)
+        xs_c, us_c, J_c, ws_c = closed_loop(
+            rep(xss), rep(uss), rep(Kss), rep(kss), alphas2,
+            rep(lams), rep(lamTs), rep(rhos), rep(wss))
+        ok2 = _armijo_ok(J_c, rep(Js), alphas2, rep(dV1),
+                         rep(dV2)).reshape(Bw, 2)
+        # grid order: prefer alpha=1 over the remembered smaller alpha
+        pick = torch.where(ok2[:, 0], 0, 1)
+        sel = lanes * 2 + pick
+        xs_b, us_b = xs_c[sel], us_c[sel]
+        J_b, ws_b = J_c.reshape(Bw, 2)[lanes, pick], ws_c[sel]
+        acc_b = ok2.any(dim=1)
+        ai_b = torch.where(ok2[:, 0], 0, ais)
+
+        # fallback: rung r rolls index r if r < ai else r + 1 (r = 1 ..
+        # n_alpha-2 covers the rest of the grid)
+        r = 1
+        while r <= n_alpha - 2 and bool((active & ~acc_b).any()):
+            f = torch.where(r < ais, r, r + 1)
+            xs_c, us_c, J_c, ok, ws_c = _line_search_at(
+                xss, uss, Kss, kss, Js, dV1, dV2, lams, lamTs, rhos, wss, f)
+            ai_b = torch.where(ok & ~acc_b, f, ai_b)
+            xs_b, us_b, J_b, acc_b, ws_b = _take_first(
+                (xs_b, us_b, J_b, acc_b, ws_b), (xs_c, us_c, J_c, ok, ws_c))
+            r += 1
+
+        out = ls_apply(xss, uss, Js, regs, wss, active,
+                       (xs_b, us_b, J_b, acc_b, ws_b), qu_inf, bp_ok)
+        ais_next = torch.where(active & acc_b,
+                               torch.clamp_min(ai_b - 1, 1), ais)
+        return out + (ais_next, r)
+
+    def make_inner_scan(k: int, two_stage: bool = True):
+        """``k`` inner iterations as one call. Each tries the quick
+        2-alpha step first and reruns the full Armijo grid from the same
+        state only when some active lane rejected both quick alphas (the
+        full grid takes the FIRST passing alpha, so an all-accept quick
+        pass already equals it), so the decisions are those of k
+        host-driven two-stage iterations; ``two_stage=False`` runs the
+        full grid every iteration. An iteration with no active lane is
+        skipped. The host reads one flag an iteration (and the quick
+        pass's when ``two_stage``), where the reference keeps the
+        choice on the device."""
+
+        def inner_scan(xss, uss, Js, regs, lams, lamTs, rhos, active,
+                       wss, its, gnorms, rit, budget):
+            """``rit`` is the round-local iteration counter (zeros at the
+            start of each AL round); with ``budget`` (this AL round's
+            inner budget) it enforces the round's budget exactly as the
+            host loop does, also where a chunk straddles it."""
+            for _ in range(k):
+                if not bool(active.any()):
+                    break
+                if two_stage:
+                    out = inner_step_quick(xss, uss, Js, regs, lams, lamTs,
+                                           rhos, active, wss)
+                    if not bool(out[7].all()):
+                        out = inner_step(xss, uss, Js, regs, lams, lamTs,
+                                         rhos, active, wss)
+                else:
+                    out = inner_step(xss, uss, Js, regs, lams, lamTs, rhos,
+                                     active, wss)
+                xss, uss, Js, regs, wss, newly_done, qu_inf, _ = out
+                gnorms = torch.where(active, qu_inf, gnorms)
+                step = active.to(its.dtype)
+                its = its + step
+                rit = rit + step
+                active = active & ~newly_done & (rit < budget)
+            return xss, uss, Js, regs, wss, active, its, gnorms, rit
+
+        return inner_scan
 
     has_con = prob.stage_con is not None
     has_conT = prob.terminal_con is not None
@@ -380,12 +583,50 @@ def make_phases(prob: ILQRProblem, opts: ILQROptions, B: int, dtype,
         has_con=has_con, has_conT=has_conT,
         rollout_open=rollout_open, traj_cost=traj_cost,
         closed_loop=closed_loop, derivatives=derivatives,
-        backward_xla=backward_xla,
+        backward=backward, backward_xla=backward_xla,
+        line_search=line_search, inner_step=inner_step,
+        inner_step_quick=inner_step_quick, inner_step_mid=inner_step_mid,
         ls_prep=ls_prep, ls_rungs=ls_rungs, ls_apply=ls_apply,
-        n_alpha=n_alpha,
+        ls_prep_at=ls_prep_at, ls_rung_at=ls_rung_at,
+        inner_step_adaptive=inner_step_adaptive,
+        n_alpha=n_alpha, alpha_grid=alpha_grid,
         # alphas rolled by slice0 and each cascade rung (the segmented
         # executor's dispatch accounting uses these)
         ls_slice_widths=[hi - lo for lo, hi in zip(ls_slice_bounds[:-1],
                                                    ls_slice_bounds[1:])],
+        make_inner_scan=make_inner_scan,
         con_violation=con_violation, dual_update=dual_update,
         smooth_cost=smooth_cost)
+
+
+def solve_batched(prob: ILQRProblem, x0s: torch.Tensor,
+                  us_init: torch.Tensor,
+                  opts: ILQROptions = ILQROptions(),
+                  lam_init=None, lamT_init=None,
+                  rho_init=None) -> ILQRResult:
+    """The lockstep batched AL-iLQR solve on ``x0s``'s device and dtype.
+
+    x0s: (B, nx); us_init: (B, T-1, nu) or (T-1, nu) shared. Every inner
+    iteration runs the full-grid ``inner_step`` for the whole batch (no
+    compaction, no schedule, no stall policy) while some lane is neither
+    done nor at ``opts.max_iter``; the AL rounds run while ``al_it <
+    opts.max_al_iter`` and some lane's violation is not below
+    ``con_tol``. A problem without constraints runs one inner solve
+    (``al_iterations`` 1, violation 0). ``lam_init (B, T-1, ncon)`` /
+    ``lamT_init (B, nconT)`` / ``rho_init (B,)`` warm-start the per-lane
+    AL state from a previous solve's ``ILQRResult.lam/lamT/rho``.
+
+    This is the segmented executor with its full-grid branch and nothing
+    else on (``two_stage_ls=False, compact=False``), which takes the same
+    decisions. One difference: a lane whose violation is NaN leaves the
+    AL rounds, as the segmented executor's do, where the reference's
+    lockstep loop keeps it in them to ``max_al_iter``."""
+    from optimization_dynamics_tpu_torch.solver.ilqr_segmented import (
+        make_segmented_solver)
+
+    if prob.dynamics_batched is None:
+        raise ValueError("solve_batched needs prob.dynamics_batched")
+    solve = make_segmented_solver(prob, opts, x0s.shape[0], x0s.dtype,
+                                  x0s.device, two_stage_ls=False,
+                                  compact=False)
+    return solve(x0s, us_init, lam_init, lamT_init, rho_init)

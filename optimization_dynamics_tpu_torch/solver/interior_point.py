@@ -82,7 +82,9 @@ class _LineSearchTrials:
     candidates up to and including the first improving one, or all
     ``max_ls`` where none improves. The solver evaluates all ``max_ls`` at
     once; the count is the work of a search that stops at the first
-    improving candidate (an operation bound counts it)."""
+    improving candidate (an operation bound counts it). ``n`` becomes a
+    tensor on the solver's device, added to without a host sync: read it
+    with ``int(ls_trials.n)`` after the solve."""
 
     on = False
     n = 0
@@ -258,8 +260,8 @@ def _make_solver_batched(residual_fn: Callable, spec: ConeSpec,
             best = torch.argmin(mc, dim=1)
             pick = torch.where(any_improve, first, best)
             if ls_trials.on:
-                ls_trials.n += int(torch.where(any_improve, first + 1,
-                                               L)[active].sum())
+                ls_trials.n = ls_trials.n + torch.where(
+                    active, torch.where(any_improve, first + 1, L), 0).sum()
             alpha = alphas[lanes, pick]
             new_merit = mc[lanes, pick]
             stalled_new = ~any_improve

@@ -180,7 +180,25 @@ def test_k2_k3_tile_widths_fit():
             slab += 2 * nu * nu + 2 * nu
         assert 8 * slab * (rblock // w) <= 48 * 1024, (nx, nu)
         widths[nx] = w
-    assert widths == {4: 16, 6: 32, 10: 32, 16: 32}
+    assert widths == {2: 4, 4: 16, 6: 32, 10: 32, 16: 32}
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (4, 2)])
+def test_k3_at_the_reference_tests_shapes(shape):
+    """K3 at the shapes the reference's kernel tests run beyond the
+    deploys' (the double integrator's (2, 1), the indefinite-Quu case's
+    (4, 2)): compiled, and declared for both kernels and both dtypes,
+    each instantiated once; with the cuts of their width sweep: the tile
+    kernel at every width at (4, 2), the per-thread kernel at (2, 1)."""
+    assert shape in _build.RICCATI_SHAPES
+    assert _build.riccati_route(*shape, 3) == (
+        "tile" if shape == (4, 2) else "thread")
+    instantiated = _instantiated_symbols()
+    for dt in (torch.float32, torch.float64):
+        for route in ("tile", "thread"):
+            name = _build.riccati_symbol(*shape, dt, route)
+            assert name in _build.SIGNATURES
+            assert instantiated.count(name) == 1
 
 
 @pytest.mark.parametrize("kind", ["batched_solve", "riccati"])

@@ -185,3 +185,39 @@ def test_kernel_route_sets_and_restores_the_cuts(tile):
         ("fused_ip", "acrobot_impact"))
     assert seen == (2 ** 31 if tile else 0)
     assert FUSED_IP_TILE_MAX_B == before
+
+
+@pytest.mark.parametrize("flags,args,name", [
+    (["--iters-per-dispatch", "4"], dict(iters_per_dispatch=4),
+     "segmented k=4"),
+    (["--per-lane-alpha", "host"], dict(per_lane_alpha="host"),
+     "segmented pla"),
+    (["--per-lane-alpha", "device"], dict(per_lane_alpha="device"),
+     "segmented pla-dev"),
+    (["--single-stage-ls"], dict(single_stage_ls=True),
+     "segmented single-stage"),
+    (["--monolithic"], dict(monolithic=True), "monolithic batched")])
+def test_torch_measure_takes_the_executor_variants(flags, args, name,
+                                                    monkeypatch):
+    """The reference bench's variant switches: they parse for the
+    cartpole deploy (then the tool stops for want of a card), reach the
+    example as its flags, which name the variant as the bench does, and
+    are refused for another model; the example refuses them without
+    ``--deploy``."""
+    from optimization_dynamics_tpu_torch.examples import cartpole
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tm = _tool("torch_measure")
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        tm.main(["deploy"] + flags)
+    with pytest.raises(SystemExit) as err:
+        tm.main(["deploy", "--model", "acrobot"] + flags)
+    assert err.value.code == 2
+    args = argparse.Namespace(**{**dict(
+        iters_per_dispatch=1, per_lane_alpha=None, single_stage_ls=False,
+        monolithic=False), **args})
+    assert tm._executor_flags(args) == flags
+    assert cartpole._executor_name(args) == name
+    with pytest.raises(SystemExit) as err:
+        cartpole.main(flags + ["--device", "cpu"])
+    assert err.value.code == 2

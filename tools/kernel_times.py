@@ -54,8 +54,10 @@ runs cold and warm-started one iterate earlier, through its narrow
 kernel (``"tile"``; K1n's group kernel) and through its per-thread
 kernel in turn (``routed``: the wrapper's width cut
 ``FUSED_IP_TILE_MAX_B`` set for the call); for cartpole, K4 too at that
-width. At each of ``--linalg-widths``, K3 (4, 1) and K2 at (10, 8) and
-(6, 6) run through their tile and per-thread kernels in turn
+width. At each of ``--linalg-widths``, K3 (4, 1), (2, 1) and (4, 2)
+(T=51, ``lqr_batch`` seeds 220, 221: ``chip_smoke.py`` phase 22's
+inputs, every lane positive definite) and K2 at (10, 8) and (6, 6) run
+through their tile and per-thread kernels in turn
 (``cut_routed``: ``RICCATI_TILE_MAX_B`` or ``BATCHED_SOLVE_TILE_MAX_B``
 set for the call), on the inputs above repeated to the width (K2's
 interleaved row by row as above); K3 at (10, 4) too, on 2,048 lanes of
@@ -394,6 +396,11 @@ def main(argv=None) -> None:
     if widths and hasattr(_build, "RICCATI_TILE_MAX_B"):
         mask4 = torch.ones((50, 4), dtype=f32, device=dev)
         lqr10 = m.lqr_batch(12, 2048, 51, 10, 4, dev, f32)
+        # the reference's kernel-test shapes, where this checkout has them
+        small = {s: (m.lqr_batch(seed, 2048, 51, *s, dev, f32),
+                     torch.ones((50, s[1]), dtype=f32, device=dev))
+                 for s, seed in (((2, 1), 220), ((4, 2), 221))
+                 if s in _build.RICCATI_TILE_MAX_B}
 
         def both(table, key, fn, *a) -> dict:
             return {route: dict(
@@ -412,6 +419,12 @@ def main(argv=None) -> None:
                 out["k3_10_4_sweep_%d" % w] = both(
                     _build.RICCATI_TILE_MAX_B, (10, 4), riccati_backward,
                     *data, mask4)
+                del data
+            for (nx, nu), (lqr_s, mask_s) in small.items():
+                data = m.grow_batch(lqr_s, w)
+                out["k3_%d_%d_sweep_%d" % (nx, nu, w)] = both(
+                    _build.RICCATI_TILE_MAX_B, (nx, nu), riccati_backward,
+                    *data, mask_s)
                 del data
             if hopper and w <= 102400:
                 data = m.grow_batch(lqr16, w)

@@ -15,6 +15,8 @@ Run from the repository root on a machine with one CUDA card:
     python -m tools.torch_measure deploy|profile --model hopper \
         [--riccati-kernel]
     python -m tools.torch_measure deploy --model rocket [--log]
+    python -m tools.torch_measure deploy [--iters-per-dispatch K]
+        [--per-lane-alpha host|device] [--single-stage-ls] [--monolithic]
     python -m tools.torch_measure profile --model rocket
 
 ``deploy`` runs the example's deploy solve (``examples/cartpole.py``,
@@ -34,7 +36,13 @@ settings; ``--log`` prints its progress, so a run that a time limit
 cuts still shows the AL rounds it finished). ``--fused-rollout``
 (cartpole only) and ``--riccati-kernel`` (cartpole and hopper) turn on
 K4 and K3, as the example's flags of the same names do: the K3+K4 cell,
-the hopper's K3 cell.
+the hopper's K3 cell. The cartpole deploy also takes the executor's
+variants, the reference bench's switches (``ODX_BENCH_K``,
+``ODX_BENCH_PLA``, ``variant_batched``): ``--iters-per-dispatch K``,
+``--per-lane-alpha host|device``, ``--single-stage-ls`` and
+``--monolithic`` (the lockstep ``solve_batched``); the JSON line then
+carries the variant's name, its wall, mean inner iterations and
+``solve.stats``.
 
 ``profile`` solves one AL round of five inner iterations at the deploy
 width in float32 three times after a warm-up: unprofiled (wall), under
@@ -84,6 +92,16 @@ def _kernel_flags(args) -> list:
             + ["--riccati-kernel"] * args.riccati_kernel)
 
 
+def _executor_flags(args) -> list:
+    """The cartpole deploy's executor variant, as the example's flags."""
+    return (["--iters-per-dispatch", str(args.iters_per_dispatch)]
+            * (args.iters_per_dispatch != 1)
+            + ["--per-lane-alpha", args.per_lane_alpha] * bool(
+                args.per_lane_alpha)
+            + ["--single-stage-ls"] * args.single_stage_ls
+            + ["--monolithic"] * args.monolithic)
+
+
 def _example(args):
     """(example module, deploy batch) of ``--model``."""
     import importlib
@@ -103,9 +121,13 @@ def deploy(args) -> None:
         c.widths.clear()
     k1, k2, k4, k3 = counters
     k2.shape_widths.clear()
-    res = ex.main(["--deploy", "--device", "cuda", "--dtype", args.dtype,
-                   "--batch", str(B)] + _kernel_flags(args)
-                  + ["--log"] * args.log)
+    argv = (["--deploy", "--device", "cuda", "--dtype", args.dtype,
+             "--batch", str(B)] + _kernel_flags(args)
+            + _executor_flags(args) + ["--log"] * args.log)
+    if args.model == "cartpole":
+        res, wall_s, stats = ex.deploy(ex.parse_args(argv))
+    else:
+        res = ex.main(argv)
     # K2's launches by (n, k, kernel, width) and K1's by (kernel, width);
     # the rocket's example checks the thrust cone with K1 after the
     # solve, and keeps the solve's own
@@ -139,6 +161,10 @@ def deploy(args) -> None:
                                    if conv.any() else None),
                median_obj_converged=(float(np.median(obj[conv]))
                                      if conv.any() else None))
+    if args.model == "cartpole":
+        out.update(executor=ex._executor_name(args), wall_s=wall_s,
+                   stats=stats,
+                   mean_inner_iters=float(res.iterations.float().mean()))
     if args.lanes:
         out.update(lane_converged=conv.tolist(), lane_objective=obj.tolist(),
                    lane_iterations=res.iterations.cpu().tolist())
@@ -250,8 +276,16 @@ def main(argv=None) -> None:
                        default="cartpole")
         p.add_argument("--fused-rollout", action="store_true")
         p.add_argument("--riccati-kernel", action="store_true")
+    d.add_argument("--iters-per-dispatch", type=int, default=1)
+    d.add_argument("--per-lane-alpha", choices=("host", "device"),
+                   default=None)
+    d.add_argument("--single-stage-ls", action="store_true")
+    d.add_argument("--monolithic", action="store_true")
     pr.set_defaults(batch=None)
     args = ap.parse_args(argv)
+    if args.what == "deploy" and _executor_flags(args) \
+            and args.model != "cartpole":
+        ap.error("the executor variants are the cartpole deploy's")
     if args.fused_rollout and args.model != "cartpole":
         ap.error("--fused-rollout is cartpole's")
     if args.riccati_kernel and args.model not in ("cartpole", "hopper"):
