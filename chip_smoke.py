@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``optimization_dynamics_tpu_torch/ops/
-kernels/csrc`` and runs phases 0-22, each printing one ``#`` line:
+kernels/csrc`` and runs phases 0-24, each printing one ``#`` line:
 
 0. card: ``nvidia-smi`` name and power limit, torch and CUDA versions,
    kernel build time in all and per source, and what ``ptxas`` reported
@@ -280,7 +280,7 @@ kernels/csrc`` and runs phases 0-22, each printing one ``#`` line:
    decision-identical, their converged counts printed; and a probe of
    whether a line-search candidate's states and AL cost depend on the
    width it is rolled at (B, 2B, the full grid's 8B), bit for bit, with
-   the terminal cost in three forms;
+   the terminal cost at B and 8B;
    (b) float32 at B=512 with compaction, the cascade, ``two_stage_ls=
    False``, ``iters_per_dispatch=4``, ``per_lane_alpha=True``,
    ``per_lane_alpha="device"`` and ``solve_batched``: finite, the
@@ -295,7 +295,24 @@ kernels/csrc`` and runs phases 0-22, each printing one ``#`` line:
    with phase 4's checks, float32 timed one call and queued; and
    ``solve_batched`` on the reference's double integrator (T=11, B=3,
    float64) with K3 at (2, 1) against the eager backward pass, xs within
-   1e-10.
+   1e-10;
+23. the other four deploys (acrobot, push, the hopper model, the
+   rocket), float64 at B=64 with phase 22's cut: the width probe of
+   22 (a) on each, every comparison bit for bit (a ``# width`` line a
+   deploy), and on the acrobot and push per-lane alpha against the
+   cascade as in 22 (a), at least 62 of 64 lanes identical (the hopper
+   model's and the rocket's: ``tools/width_probe.py --identity``);
+24. two worker processes on the card
+   (``scripts/multihost_worker.py``, fresh interpreters, gloo between
+   them, each loading the library phase 0 built, each within 300 s):
+   (i) the reference worker's problem (cartpole friction, T=11, two AL
+   rounds of 4), float64, 32 lanes as 16 a process, against this
+   process solving all 32: flags, inner and AL counts on every lane,
+   controls within 1e-9; (ii) the deploy sweep's one shard of 512
+   lanes, float32, 256 a process, cut as phase 22, against one
+   process's: every lane finite, converged within 8 lanes; in each, both
+   processes on the card, K1 and K2 launched in each, each launch on
+   the kernel its width picks.
 
 The kernels' designs are in their wrappers' docstrings
 (``ops/kernels/*.py``). K1 (cartpole, the rocket's projection, the
@@ -404,7 +421,8 @@ their launches at those shapes (``launches_2_1`` from phase 22's
 double-integrator solve; no solve runs (4, 2)); ``fused_ip``,
 ``fused_ip_tile``, ``batched_solve`` and ``batched_solve_tile`` carry
 their launches over phase 22's six B=512 variants as
-``launches_executor_variants``. The last line
+``launches_executor_variants``, and their launches in phase 24's two
+worker processes as ``launches_two_processes``. The last line
 is ``{"ok": true,
 "device": {...}}``. It needs one card and no network.
 """
@@ -2791,10 +2809,9 @@ def _width_probe(prob, opts, x0s, us0, device) -> dict:
     width it is rolled at: at the open-loop start, every grid alpha rolled
     at width B (one alpha a lane, the per-lane rungs), 2B (the cascade's
     first slice, the first two alphas) and n_alpha B (the full grid),
-    states and AL costs compared bit for bit; then the terminal cost
-    alone on the same final states at widths B and n_alpha B, as the
-    problem writes it, as a vmapped dot product, as a sum of squares and
-    as an unrolled sum."""
+    states and AL costs compared bit for bit; then the problem's terminal
+    cost alone on the grid's final states at widths B and n_alpha B.
+    ``all_equal`` is whether every comparison is bit for bit."""
     import torch
     from torch.func import vmap
 
@@ -2828,39 +2845,54 @@ def _width_probe(prob, opts, x0s, us0, device) -> dict:
     one = [roll(grid[i].expand(B, 1)) for i in range(A)]
     x1 = torch.cat([o[0] for o in one], dim=1)
     J1 = torch.cat([o[1] for o in one], dim=1)
-    rel = lambda a, b: float(((a - b).abs() / b.abs()).max())
+    rel = lambda a, b: float(((a - b).abs()
+                              / b.abs().clamp_min(1e-300)).max())
     xf = xg[:, :, -1]
-    # the goal: terminal_con(x) = x - goal
-    goal = -prob.terminal_con(torch.zeros(nx, dtype=dtype, device=device))
-
-    def unrolled(x):
-        d = x - goal
-        acc = d[0] * d[0]
-        for j in range(1, nx):
-            acc = acc + d[j] * d[j]
-        return acc
-
-    forms = {"problem": vmap(prob.terminal_cost),
-             "vmap_dot": vmap(lambda x: (x - goal) @ (x - goal)),
-             "vmap_sum": vmap(lambda x: torch.sum((x - goal) ** 2)),
-             "unrolled": vmap(unrolled)}
-    terminal = {}
-    for name, f in forms.items():
-        wide = f(xf.reshape(B * A, nx)).reshape(B, A)
-        narrow = torch.stack([f(xf[:, i].contiguous()) for i in range(A)],
-                             dim=1)
-        terminal[name] = dict(equal=bool(torch.equal(wide, narrow)),
-                              entries_differing=int((wide != narrow).sum()))
-    return dict(
+    term = vmap(prob.terminal_cost)
+    wide = term(xf.reshape(B * A, nx)).reshape(B, A)
+    narrow = torch.stack([term(xf[:, i].contiguous()) for i in range(A)],
+                         dim=1)
+    out = dict(
+        B=B, n_alpha=A,
         states_grid_eq_single=bool(torch.equal(xg, x1)),
+        states_grid_entries_differing=int((xg != x1).sum()),
+        states_grid_max_abs=float((xg - x1).abs().max()),
         states_slice_eq_single=bool(torch.equal(x2, x1[:, :2])),
+        states_slice_entries_differing=int((x2 != x1[:, :2]).sum()),
         cost_grid_eq_single=bool(torch.equal(Jg, J1)),
         cost_grid_entries_differing=int((Jg != J1).sum()),
         cost_grid_max_rel=rel(Jg, J1),
         cost_slice_eq_single=bool(torch.equal(J2, J1[:, :2])),
         cost_slice_entries_differing=int((J2 != J1[:, :2]).sum()),
         cost_slice_max_rel=rel(J2, J1[:, :2]),
-        terminal_cost_wide_eq_narrow=terminal)
+        terminal_cost_wide_eq_narrow=bool(torch.equal(wide, narrow)),
+        terminal_cost_entries_differing=int((wide != narrow).sum()),
+        terminal_cost_max_rel=rel(wide, narrow))
+    out["all_equal"] = all(out[k] for k in (
+        "states_grid_eq_single", "states_slice_eq_single",
+        "cost_grid_eq_single", "cost_slice_eq_single",
+        "terminal_cost_wide_eq_narrow"))
+    return out
+
+
+def _decisions(ref, res, name: str, B: int) -> dict:
+    """Lane by lane, whether ``res`` took the cascade's (``ref``)
+    decisions: its flags, inner counts and controls within 1e-9;
+    requires at least B - B/32 such lanes."""
+    import torch
+
+    same = ((res.converged == ref.converged)
+            & (res.iterations == ref.iterations)
+            & ((res.us - ref.us).abs().amax(dim=(1, 2)) <= 1e-9))
+    differ = torch.nonzero(~same).flatten().tolist()
+    _check(int(same.sum()) >= B - B // 32,
+           "executor %s: %d of %d lanes take the cascade's "
+           "decisions (differing: %s)" % (name, int(same.sum()), B, differ))
+    return dict(lanes_identical=int(same.sum()), lanes_differing=differ,
+                max_dus=float((res.us - ref.us).abs().max()),
+                differing={i: {"cascade": _lane_fields(ref, i),
+                               name: _lane_fields(res, i)}
+                           for i in differ})
 
 
 def _double_integrator(device, dtype):
@@ -2926,20 +2958,7 @@ def phase_executor(device) -> dict:
         entry = dict(converged=int(res.converged.sum()), wall_s=wall,
                      stats=stats)
         if name in EXECUTOR_IDENTICAL:
-            same = ((res.converged == ref.converged)
-                    & (res.iterations == ref.iterations)
-                    & ((res.us - ref.us).abs().amax(dim=(1, 2)) <= 1e-9))
-            differ = torch.nonzero(~same).flatten().tolist()
-            entry.update(lanes_identical=int(same.sum()),
-                         lanes_differing=differ,
-                         max_dus=float((res.us - ref.us).abs().max()),
-                         differing={i: {"cascade": _lane_fields(ref, i),
-                                        name: _lane_fields(res, i)}
-                                    for i in differ})
-            _check(int(same.sum()) >= B - B // 32,
-                   "executor %s: %d of %d lanes take the cascade's "
-                   "decisions (differing: %s)" % (name, int(same.sum()), B,
-                                                  differ))
+            entry.update(_decisions(ref, res, name, B))
         ident[name] = entry
     ident["width_probe"] = _width_probe(prob, opts, x0s, us0, device)
     out["identity_f64_64"] = ident
@@ -3089,6 +3108,225 @@ def phase_executor(device) -> dict:
     return out
 
 
+# phase 23: the four other deploys (``examples.<name>``), float64, B=64,
+# cut to EXECUTOR_CUT: the width probe on each; per-lane alpha against
+# the cascade on those whose host loop is short (the hopper model's and
+# the rocket's run through ``tools/width_probe.py --identity``)
+WIDTH_DEPLOYS = ("acrobot", "planar_push", "hopper", "rocket")
+IDENTITY_DEPLOYS = ("acrobot", "planar_push")
+
+
+def deploy_f64(name: str, device):
+    """``examples.<name>``'s deploy problem in float64 with the options cut
+    to ``EXECUTOR_CUT`` and its ``EXECUTOR_B_IDENTITY`` scenarios (numpy
+    seed 0): ``(prob, opts, x0s, us0)``."""
+    import importlib
+
+    import torch
+
+    ex = importlib.import_module("optimization_dynamics_tpu_torch.examples."
+                                 + name)
+    prob, x0, us0, opts = ex.build_deploy_problem(device,
+                                                  dtype=torch.float64)
+    return (prob, dataclasses.replace(opts, **EXECUTOR_CUT),
+            ex.deploy_x0s(x0, EXECUTOR_B_IDENTITY, seed=0), us0)
+
+
+def lane_identity(prob, opts, x0s, us0, device) -> dict:
+    """``per_lane_alpha=True`` against the cascade, no compaction: phase
+    22 (a)'s rule, with both walls and converged counts."""
+    B = x0s.shape[0]
+    ref, wall_c, st_c = _executor_solve(prob, opts, B, device, {}, x0s,
+                                        us0, False)
+    res, wall, st = _executor_solve(prob, opts, B, device,
+                                    dict(per_lane_alpha=True), x0s, us0,
+                                    False)
+    return dict(_decisions(ref, res, "per_lane_alpha", B),
+                cascade=dict(converged=int(ref.converged.sum()),
+                             wall_s=wall_c, stats=st_c),
+                converged=int(res.converged.sum()), wall_s=wall, stats=st)
+
+
+def phase_width(device) -> dict:
+    """The width probe on each of ``WIDTH_DEPLOYS`` (every comparison bit
+    for bit), per-lane alpha's decision identity on ``IDENTITY_DEPLOYS``."""
+    out = {}
+    for name in WIDTH_DEPLOYS:
+        prob, opts, x0s, us0 = deploy_f64(name, device)
+        t0 = time.perf_counter()
+        probe = _width_probe(prob, opts, x0s, us0, device)
+        probe["wall_s"] = time.perf_counter() - t0
+        _check(probe["all_equal"], "width probe %s: %s" % (name, probe))
+        out[name] = dict(width_probe=probe)
+        if name in IDENTITY_DEPLOYS:
+            out[name]["per_lane_alpha"] = lane_identity(prob, opts, x0s,
+                                                        us0, device)
+        print("# width %s: %s" % (name, json.dumps(out[name])), flush=True)
+    return out
+
+
+# phase 24: two worker processes on the one card (fresh interpreters,
+# gloo between them, each loading the library phase 0 built)
+MULTIHOST_WORKER = "optimization_dynamics_tpu_torch.scripts.multihost_worker"
+MULTIHOST_TIMEOUT_S = 300
+MULTIHOST_B = 32
+
+
+def _two_workers(*extra) -> list:
+    """``python -m <worker> <pid> 2 <port> --device cuda <extra>`` as
+    processes 0 and 1 from this checkout, each within
+    ``MULTIHOST_TIMEOUT_S`` (both killed otherwise): each one's
+    ``MULTIHOST_INFO``, checked: exit 0, ``MULTIHOST_OK``, on a card, the
+    library found built, K1 and K2 launched, each launch on the kernel
+    its width picks."""
+    import socket
+    import subprocess
+
+    from optimization_dynamics_tpu_torch.ops.kernels._build import (
+        FUSED_IP_TILE_MAX_B, batched_solve_route)
+
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", MULTIHOST_WORKER, str(pid), "2", str(port),
+         "--device", "cuda", *extra], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=root) for pid in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=MULTIHOST_TIMEOUT_S)
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    k1_cut = FUSED_IP_TILE_MAX_B["fused_ip", "cartpole_friction"]
+    infos = []
+    for pid, (rc, out, err) in enumerate(outs):
+        _check(rc == 0 and ("MULTIHOST_OK pid=%d" % pid) in out,
+               "worker %d %s: exit %s\n%s\n%s"
+               % (pid, extra, rc, out[-3000:], err[-3000:]))
+        info = json.loads(next(x for x in out.splitlines()
+                               if x.startswith("MULTIHOST_INFO"))
+                          .split(" ", 1)[1])
+        k1, k2 = info["launches"]["fused_ip"], info["launches"]["batched_solve"]
+        _check(info["device"].startswith("cuda") and info["library_prebuilt"],
+               "worker %d: device %s, library prebuilt %s"
+               % (pid, info["device"], info["library_prebuilt"]))
+        _check(sum(k1.values()) > 0 and sum(k2.values()) > 0,
+               "worker %d: K1 %s, K2 %s" % (pid, k1, k2))
+        _check(all((key.split()[0] == "tile") == (int(key.split()[1])
+                                                  <= k1_cut) for key in k1),
+               "worker %d: K1 launches off their route: %s" % (pid, k1))
+        _check(all(key.split()[2] == batched_solve_route(
+            *(int(v) for v in key.split()[:2]), int(key.split()[3]))
+            for key in k2),
+            "worker %d: K2 launches off their route: %s" % (pid, k2))
+        infos.append(info)
+    return infos
+
+
+def phase_multihost(device) -> dict:
+    """(i) the worker's problem (the reference worker's: cartpole T=11,
+    two AL rounds of 4), float64, ``MULTIHOST_B`` lanes over two
+    processes against one process solving them all: flags, inner and AL
+    counts on every lane, controls within 1e-9; (ii) the deploy sweep's
+    one shard of 512 lanes over two processes (256 each), float32, cut
+    to ``EXECUTOR_CUT``, against one process's: every lane finite,
+    converged within 8 lanes."""
+    import tempfile
+    from types import SimpleNamespace
+
+    import torch
+
+    from optimization_dynamics_tpu_torch.examples import sweep as sw
+    from optimization_dynamics_tpu_torch.parallel.mesh import scenario_mesh
+    from optimization_dynamics_tpu_torch.scripts import (
+        multihost_worker as mw)
+    from optimization_dynamics_tpu_torch.utils.checkpoint import load_result
+
+    tmp = tempfile.TemporaryDirectory()
+    ranks = lambda infos: {str(i["pid"]): {k: i[k] for k in (
+        "device", "entries", "wall_s", "launches")} for i in infos}
+    out = {}
+    path = os.path.join(tmp.name, "solve.npz")
+    t0 = time.perf_counter()
+    infos = _two_workers("--batch", str(MULTIHOST_B), "--dtype", "f64",
+                         "--out", path)
+    wall_two = time.perf_counter() - t0
+    two, meta = load_result(path)
+    t0 = time.perf_counter()
+    res, _ = mw._solve_worker_problem(
+        SimpleNamespace(batch=MULTIHOST_B), scenario_mesh(devices=[device]),
+        device, torch.float64)
+    torch.cuda.synchronize()
+    wall_one = time.perf_counter() - t0
+    one = {k: v.cpu().numpy() for k, v in res._asdict().items()
+           if v is not None}
+    dus = np.abs(two["us"] - one["us"]).max(axis=(1, 2))
+    same = ((two["converged"] == one["converged"])
+            & (two["iterations"] == one["iterations"])
+            & (two["al_iterations"] == one["al_iterations"]) & (dus <= 1e-9))
+    _check(meta["devices"] == 2 and two["xs"].shape[0] == MULTIHOST_B
+           and bool(same.all()),
+           "two processes against one: %d of %d lanes identical (meta %s)"
+           % (int(same.sum()), MULTIHOST_B, meta))
+    out["solve_f64"] = dict(
+        lanes=MULTIHOST_B, lanes_identical=int(same.sum()),
+        max_dus=float(dus.max()),
+        max_dxs=float(np.abs(two["xs"] - one["xs"]).max()),
+        converged=int(two["converged"].sum()),
+        iterations=two["iterations"].tolist(),
+        two_processes=dict(wall_s=wall_two), one_process=dict(wall_s=wall_one),
+        ranks=ranks(infos))
+
+    cut = [str(v) for v in (EXECUTOR_CUT["max_iter"],
+                            EXECUTOR_CUT["max_al_iter"])]
+    t0 = time.perf_counter()
+    infos = _two_workers("--sweep-deploy", "512", "--shard", "512",
+                         "--max-iter", cut[0], "--max-al-iter", cut[1],
+                         "--out", os.path.join(tmp.name, "two"))
+    wall_two = time.perf_counter() - t0
+    _clear_launches()
+    t0 = time.perf_counter()
+    st = sw.run_sweep_deploy(512, shard=512, verbose=False, device=device,
+                             out_dir=os.path.join(tmp.name, "one"),
+                             **EXECUTOR_CUT)
+    wall_one = time.perf_counter() - t0
+    launches_one = _launches_by_width()
+    two, meta_two = load_result(os.path.join(tmp.name, "two",
+                                             "shard_00000.npz"))
+    one, _ = load_result(os.path.join(tmp.name, "one", "shard_00000.npz"))
+    bad = sorted(k for k, v in two.items()
+                 if v.dtype.kind == "f" and not np.isfinite(v).all())
+    c_two, c_one = int(two["converged"].sum()), st[0]["n_converged"]
+    _check(two["xs"].shape[0] == 512 and two["xs"].dtype == np.float32
+           and np.isfinite(two["xs"]).all(),
+           "two-process sweep: xs %s %s not finite or misshapen"
+           % (two["xs"].shape, two["xs"].dtype))
+    _check(abs(c_two - c_one) <= 8,
+           "two-process sweep: %d converged, one process %d" % (c_two, c_one))
+    # the processes solve 256 lanes each, compacted at their own widths,
+    # so a lane may take another path than at 512: reported, not held
+    rel = np.abs(two["objective"] - one["objective"]) / np.abs(one["objective"])
+    out["sweep_f32_512"] = dict(
+        converged_two_processes=c_two, converged_one_process=c_one,
+        lanes_same_flags_and_iterations=int(
+            ((two["converged"] == one["converged"])
+             & (two["iterations"] == one["iterations"])).sum()),
+        objective_rel_diff_median=float(np.median(rel)),
+        objective_rel_diff_max=float(rel.max()),
+        summary_two=meta_two, summary_one=st[0], non_finite_fields=bad,
+        two_processes=dict(wall_s=wall_two), one_process=dict(wall_s=wall_one),
+        ranks=ranks(infos), launches_one_process=launches_one)
+    tmp.cleanup()
+    return out
+
+
 # seconds each phase took, by its function's name (``_timed``)
 PHASE_SECONDS = {}
 
@@ -3182,6 +3420,12 @@ def main() -> int:
     print("# phase 21 scenario sweep: %s" % json.dumps(sw), flush=True)
     xv = _timed(phase_executor, device)
     print("# phase 22 executor variants: %s" % json.dumps(xv), flush=True)
+    wd = _timed(phase_width, device)
+    print("# phase 23 width probe and per-lane alpha on the other deploys: "
+          "%s" % json.dumps(wd), flush=True)
+    mh = _timed(phase_multihost, device)
+    print("# phase 24 two processes on the card: %s" % json.dumps(mh),
+          flush=True)
     print("# phase seconds: %s" % json.dumps(dict(
         build=round(build_s, 1), **{k: round(v, 1)
                                     for k, v in PHASE_SECONDS.items()})),
@@ -3459,6 +3703,22 @@ def main() -> int:
             k["launches_4_2"] = 0
         if k["name"] in by_name:
             k["launches_executor_variants"] = by_name[k["name"]]
+    # phase 24: K1's and K2's launches in the two worker processes, (i)
+    # and (ii) together, both ranks
+    by_name = dict.fromkeys(("fused_ip", "fused_ip_tile", "batched_solve",
+                             "batched_solve_tile"), 0)
+    for part in ("solve_f64", "sweep_f32_512"):
+        for r in mh[part]["ranks"].values():
+            for key, v in r["launches"]["fused_ip"].items():
+                by_name["fused_ip_tile" if key.startswith("tile ")
+                        else "fused_ip"] += v
+            for key, v in r["launches"]["batched_solve"].items():
+                if key.startswith("10 8 "):
+                    by_name["batched_solve_tile" if " tile " in key
+                            else "batched_solve"] += v
+    for k in kernels:
+        if k["name"] in by_name:
+            k["launches_two_processes"] = by_name[k["name"]]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -93,10 +93,12 @@ def build_problem(mode: str = "impact", kappa_grad: float = 1.0e-3,
 
     def velocity_cost(x):
         v1 = (x[2:] - x[:2]) / H
-        return 0.5 * 0.1 * v1 @ v1
+        return torch.sum(0.5 * 0.1 * v1 * v1)
 
+    # explicit sums in the dot products' order (``cartpole.build_problem``
+    # says why)
     def stage_cost(t, x, u):
-        return velocity_cost(x) + 0.5 * u @ u
+        return velocity_cost(x) + torch.sum(0.5 * u * u)
 
     prob = ILQRProblem(
         T=T, nx=NX, nu=NU, ncon=0, nconT=NX,

@@ -92,11 +92,16 @@ def build_problem(mode: str = "friction", friction=(0.35, 0.35),
     xT = torch.tensor([0.0, math.pi, 0.0, math.pi], dtype=dtype,
                       device=device)
 
+    # the costs as explicit sums, not dot products: vmapped over lanes, a
+    # dot product is a cuBLAS batched product whose kernel follows the
+    # batch count, so a lane's cost would move in its last bits with the
+    # rollout's width (on the CPU both forms agree)
     def stage_cost(t, x, u):
-        return u @ u
+        return torch.sum(u * u)
 
     def terminal_cost(x):
-        return (x - xT) @ (x - xT)
+        d = x - xT
+        return torch.sum(d * d)
 
     prob = ILQRProblem(
         T=T, nx=NX, nu=NU, ncon=0, nconT=NX,
@@ -176,15 +181,6 @@ def build_deploy_problem(device, dtype=None, friction=(0.35, 0.35),
     if fused_rollout:
         prob = prob._replace(rollout_fused=make_fused_rollout(
             model, IPOptions(**ip), aux, T, prob.u_mask, device, dtype))
-    # the costs as sums of squares: vmapped, a dot product is a cuBLAS
-    # batched product whose kernel follows the batch count, so a lane's
-    # cost would move in its last bits with the rollout's width (on the
-    # CPU both forms give the same bits)
-    xT = torch.tensor([0.0, math.pi, 0.0, math.pi], dtype=dtype,
-                      device=device)
-    prob = prob._replace(
-        stage_cost=lambda t, x, u: torch.sum(u * u),
-        terminal_cost=lambda x: torch.sum((x - xT) ** 2))
     opts = dataclasses.replace(opts, con_tol=0.01, rho_max=1.0e6,
                                alpha_min=1.0e-2)
     return prob, x0, us0, opts

@@ -217,16 +217,20 @@ def build_problem(gait: int = 1, device="cuda", dtype=torch.float64):
     foot1_ref, foot2_ref = kf(x1_small[0:4]), kf(x1_small[4:8])
     u_lim = 10.0
 
+    # explicit sums in the dot products' order (``cartpole.build_problem``
+    # says why)
     def stage_cost(t, x, u):
         dx = x[0:8] - x_ref
-        first = 0.5 * dx @ (w8 * dx) + 0.5 * u @ (uw * u)
+        first = (torch.sum(0.5 * dx * (w8 * dx))
+                 + torch.sum(0.5 * u * (uw * u)))
         u2 = u[0:2]
-        rest = 0.5 * q_cost * dx @ (w8 * dx) + 0.5 * r_cost * u2 @ u2
+        rest = (torch.sum(0.5 * q_cost * dx * (w8 * dx))
+                + torch.sum(0.5 * r_cost * u2 * u2))
         return _select(t == 0, first, rest)
 
     def terminal_cost(x):
         dx = x[0:8] - x_ref
-        return 0.5 * dx @ dx
+        return torch.sum(0.5 * dx * dx)
 
     # 12 padded stage rows: 0:4 the control box (inequalities, every
     # stage); on the first stage 4:8 pin u's q1 to x1's, 8:12 the foot

@@ -115,16 +115,20 @@ def build_problem(mode: str = "rotate", gradient_bundle: bool = False,
     xw = t([1.0, 1.0, 1.0, 0.1, 0.1] * 2)
     uw = 1.0e-1 if mode == "translate" else 1.0e-2
 
+    # explicit sums in the dot products' order (``cartpole.build_problem``
+    # says why)
     def stage_cost(t_, x, u):
         v1 = (x[5:] - x[:5]) / H
         dx = x - xT
-        return (0.5 * v1 @ (vw * v1) + 0.5 * dx @ (xw * dx)
-                + 0.5 * uw * u @ u)
+        return (torch.sum(0.5 * v1 * (vw * v1))
+                + torch.sum(0.5 * dx * (xw * dx))
+                + torch.sum(0.5 * uw * u * u))
 
     def terminal_cost(x):
         v1 = (x[5:] - x[:5]) / H
         dx = x - xT
-        return 0.5 * v1 @ (vw * v1) + 0.5 * dx @ (xw * dx)
+        return (torch.sum(0.5 * v1 * (vw * v1))
+                + torch.sum(0.5 * dx * (xw * dx)))
 
     def stage_con(t_, x, u):
         return torch.cat([-U_LIM - u, u - U_LIM])

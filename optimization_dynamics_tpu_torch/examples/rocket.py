@@ -157,13 +157,15 @@ def build_problem(mode: str = "projection", device="cuda",
     rw = t(H * np.array([1000.0, 1000.0, 100.0]))
     qwT = t(H * 1000.0 * np.ones(NX))
 
+    # explicit sums in the dot products' order (``cartpole.build_problem``
+    # says why)
     def stage_cost(t, x, u):
         dx = x - xT
-        return 0.5 * dx @ (qw * dx) + 0.5 * u @ (rw * u)
+        return torch.sum(0.5 * dx * (qw * dx)) + torch.sum(0.5 * u * (rw * u))
 
     def terminal_cost(x):
         dx = x - xT
-        return 0.5 * dx @ (qwT * dx)
+        return torch.sum(0.5 * dx * (qwT * dx))
 
     x_con = (-0.5, 0.5)
     y_con = (-0.75, 0.75)

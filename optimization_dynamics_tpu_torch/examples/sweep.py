@@ -15,7 +15,12 @@ the per-lane flags to fleet numbers.
 * ``run_sweep_deploy``: the deploy tier (``cartpole.build_deploy_problem``,
   float32 on the card) solved lane-batched by the segmented executor,
   shard after shard, optionally warm-started from the previous shard
-  (on the card K1 at the compacted widths, K2 at (10, 8)).
+  (on the card K1 at the compacted widths, K2 at (10, 8)). Under
+  ``parallel.mesh.initialize`` each shard is spread over every
+  process's devices, each process solving its rows at their own width,
+  and every process holds the shard's gathered result and summary;
+  rank 0 writes the checkpoint while the others wait at a barrier, and
+  a resumed sweep reads the same files on every rank.
 
 Run it on the card with
 
@@ -25,8 +30,9 @@ Run it on the card with
 
 ``--device`` defaults to ``cuda`` and the script stops if there is no
 CUDA device; ``--device cpu`` runs the plain versions (the deploy sweep
-then in float64 on shards of at most 8 lanes). Multi-host sweeps (the
-reference's ``jax.distributed``) are not ported.
+then in float64 on shards of at most 8 lanes). A deploy sweep over
+several processes runs through ``scripts/multihost_worker.py
+--sweep-deploy`` (one process a rank).
 
 The reference draws its initial states, retry perturbations and deploy
 directions with ``jax.random``, which torch cannot reproduce; here they
@@ -37,6 +43,7 @@ are arguments (``x0s``, ``retry_noise``, ``dirs``, and the friction grid
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import math
 import time
 from types import SimpleNamespace
@@ -49,6 +56,8 @@ from optimization_dynamics_tpu_torch.models import cartpole
 from optimization_dynamics_tpu_torch.parallel.mesh import (
     convergence_summary,
     merge_retry,
+    process_count,
+    process_index,
     quarantine,
     scenario_mesh,
     sharded_map,
@@ -180,7 +189,8 @@ def run_sweep(n_scenarios: int = 64, shard_size: int = 32,
 def run_sweep_deploy(n_scenarios: int = 256, shard: int = 128,
                      warm: bool = False, out_dir: str | None = None,
                      verbose: bool = True, device="cuda", dirs=None,
-                     seed: int = 0, timers=None):
+                     seed: int = 0, timers=None, max_iter=None,
+                     max_al_iter=None):
     """The deploy sweep: ``cartpole.build_deploy_problem`` (float32 on a
     CUDA device, float64 on the CPU with ``shard = min(shard, 8)``) solved
     by the segmented executor (``DEPLOY_MAX_ITER_SCHEDULE``,
@@ -205,23 +215,65 @@ def run_sweep_deploy(n_scenarios: int = 256, shard: int = 128,
     With ``out_dir`` each shard is saved there and a shard already there
     is skipped (its result seeds the next shard of a warm sweep).
     ``timers`` (a ``utils.profiling.PhaseTimer``) goes to the executor.
-    Returns the solved shards' summaries: ``convergence_summary`` with
-    the wall, converged solves/s, the IP solves the executor counted
-    (lane-rollouts x (T-1)) and whether the shard was warm-started."""
+    ``max_iter`` cuts the inner budget (every round of the schedule to at
+    most it), ``max_al_iter`` the AL rounds. Under
+    ``parallel.mesh.initialize`` the mesh is every process's devices and
+    ``device`` names this process's kind (``cuda`` or ``cpu``); each
+    shard's rows are split over the mesh (module docstring). Returns the
+    solved shards' summaries: ``convergence_summary`` with the wall (the
+    slowest process's), converged solves/s, the IP solves the executors
+    counted (lane-rollouts x (T-1), over every process) and whether the
+    shard was warm-started."""
     from optimization_dynamics_tpu_torch.examples import cartpole as excp
     from optimization_dynamics_tpu_torch.solver.ilqr_segmented import (
         make_segmented_solver)
 
+    import torch.distributed as dist
+
     device = torch.device(device)
     on_gpu = device.type == "cuda"
+    if on_gpu and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     dtype = torch.float32 if on_gpu else torch.float64
     if not on_gpu:
         shard = min(shard, 8)        # CPU: keep the lane width small
-    prob, x0, us0, opts = excp.build_deploy_problem(device, dtype=dtype)
-    run = make_segmented_solver(prob, opts, shard, dtype, device,
-                                max_iter_schedule=DEPLOY_MAX_ITER_SCHEDULE,
-                                al_stall_rounds=DEPLOY_AL_STALL_ROUNDS,
-                                timers=timers)
+    grouped = process_count() > 1
+    mesh = scenario_mesh() if grouped else scenario_mesh(devices=[device])
+    schedule = DEPLOY_MAX_ITER_SCHEDULE
+    problems, solvers = {}, {}
+
+    def problem(dev):
+        if dev not in problems:
+            prob, x0, us0, opts = excp.build_deploy_problem(dev, dtype=dtype)
+            if max_iter is not None:
+                opts = dataclasses.replace(opts, max_iter=max_iter)
+            if max_al_iter is not None:
+                opts = dataclasses.replace(opts, max_al_iter=max_al_iter)
+            problems[dev] = prob, x0, us0, opts
+        return problems[dev]
+
+    if max_iter is not None:
+        schedule = tuple(min(m, max_iter) for m in schedule)
+    ip_solves = [0]
+
+    def solve_rows(x0s, us_init, lam_i, lamT_i):
+        """One mesh entry's rows of a shard, at their own width."""
+        key = (x0s.device, x0s.shape[0])
+        prob = problem(x0s.device)[0]
+        if key not in solvers:
+            solvers[key] = make_segmented_solver(
+                prob, problem(x0s.device)[3], x0s.shape[0], dtype,
+                x0s.device, max_iter_schedule=schedule,
+                al_stall_rounds=DEPLOY_AL_STALL_ROUNDS, timers=timers)
+        run = solvers[key]
+        res = run(x0s, us_init, lam_init=lam_i, lamT_init=lamT_i)
+        ip_solves[0] += ((run.stats.get("sweep_lanes", 0)
+                          + run.stats.get("roll_lanes", 0)) * (prob.T - 1))
+        return res
+
+    run = sharded_map(solve_rows, mesh)
+    first = mesh[mesh.mine()[0]]
+    prob, x0, us0, opts = problem(first)
     ck = SweepCheckpointer(out_dir) if out_dir else None
 
     n_shards = (n_scenarios + shard - 1) // shard
@@ -237,30 +289,39 @@ def run_sweep_deploy(n_scenarios: int = 256, shard: int = 128,
         if ck is not None and ck.done(s):
             if warm:
                 data, _ = ck.load(s)
-                prev = SimpleNamespace(us=data["us"], lam=data["lam"],
-                                       lamT=data["lamT"])
+                prev = SimpleNamespace(**{
+                    k: torch.as_tensor(data[k], dtype=dtype, device=first)
+                    for k in ("us", "lam", "lamT")})
             continue
         x0s = torch.as_tensor(x0_np[None] + (s + 1) * DEPLOY_STEP * dirs,
-                              dtype=dtype, device=device)
+                              dtype=dtype, device=first)
         if warm and prev is not None:
             us_init, lam_i, lamT_i = prev.us, prev.lam, prev.lamT
         else:
-            us_init, lam_i, lamT_i = us0, None, None
+            us_init = us0[None].expand(x0s.shape[0], -1, -1).contiguous()
+            lam_i = lamT_i = None
         t0 = time.perf_counter()
-        res = run(x0s, us_init, lam_init=lam_i, lamT_init=lamT_i)
+        ip_solves[0] = 0
+        res = run(x0s, us_init, lam_i, lamT_i)
         block_until_ready(res.xs)
-        wall = time.perf_counter() - t0
+        wall, ips = time.perf_counter() - t0, ip_solves[0]
+        if grouped:
+            red = torch.tensor([wall, float(ips)], dtype=torch.float64)
+            dist.all_reduce(red[0:1], op=dist.ReduceOp.MAX)
+            dist.all_reduce(red[1:2])
+            wall, ips = float(red[0]), int(red[1])
         prev = res
         summary = convergence_summary(res.converged, res.iterations)
         summary.update(
             wall_s=round(wall, 2),
             solves_per_s=round(summary["n_converged"] / wall, 3),
-            ip_solves=int((run.stats.get("sweep_lanes", 0)
-                           + run.stats.get("roll_lanes", 0))
-                          * (prob.T - 1)),
+            ip_solves=int(ips),
             warm=bool(warm and s > 0))
         if ck is not None:
-            ck.save(s, res, meta=summary)
+            if process_index() == 0:
+                ck.save(s, res, meta=summary)
+            if grouped:
+                dist.barrier()
         stats.append(summary)
         if verbose:
             print(f"shard {s}: {summary}", flush=True)

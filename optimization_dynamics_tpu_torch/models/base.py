@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["variational_dynamics"]
+__all__ = ["variational_dynamics", "rotation_matrix"]
 
 
 def variational_dynamics(mass_matrix, dynamics_bias, h, q0, q1, q2, control,
@@ -48,3 +48,12 @@ def variational_dynamics(mass_matrix, dynamics_bias, h, q0, q1, q2, control,
     if damping != 0.0:
         d = d - h * damping * vm2
     return d
+
+
+def rotation_matrix(angle):
+    """The 2-D rotation by ``angle``: ``[[c, -s], [s, c]]``, (..., 2, 2)
+    for an angle of shape (...)."""
+    angle = torch.as_tensor(angle)
+    c, s = torch.cos(angle), torch.sin(angle)
+    return torch.stack([torch.stack([c, -s], dim=-1),
+                        torch.stack([s, c], dim=-1)], dim=-2)

@@ -47,6 +47,12 @@ class CartpoleParams(NamedTuple):
     gravity: float = 9.81
 
 
+def kinematics(p: CartpoleParams, q):
+    """The pole tip's position, (..., 2)."""
+    return torch.stack([q[..., 0] + p.length * torch.sin(q[..., 1]),
+                        -p.length * torch.cos(q[..., 1])], dim=-1)
+
+
 def mass_matrix(p: CartpoleParams, q):
     b = p.mp * p.length * torch.cos(q[..., 1])
     a = torch.full_like(b, p.mc + p.mp)

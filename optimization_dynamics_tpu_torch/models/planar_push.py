@@ -88,6 +88,14 @@ def _norm_sum(d0, d1):
     return _ipow(d0, _P_NORM) + _ipow(d1, _P_NORM)
 
 
+def sd_2d_box(p, pose):
+    """Signed distance of the point ``p (..., 2)`` to the box at ``pose
+    (..., 3)``: the p=10 smooth-max norm of the point in the box frame
+    minus the half-width (``phi`` is it on ``q``'s pusher and block)."""
+    _, _, d0, d1 = _box_frame(torch.cat([pose, p], dim=-1))
+    return _norm_sum(d0, d1) ** (1.0 / _P_NORM) - R_DIM
+
+
 def phi(q):
     """Pusher-box signed distance: the p=10 smooth-max norm of delta
     minus the half-width."""
@@ -147,6 +155,20 @@ def tangential_jacobian(q):
 def mass_diag(p: PlanarPushParams):
     return (p.mass_block, p.mass_block, p.inertia, p.mass_pusher,
             p.mass_pusher)
+
+
+def mass_matrix(p: PlanarPushParams, device=None, dtype=torch.float64):
+    """The (diagonal) mass matrix, (5, 5); the residual applies
+    ``mass_diag`` elementwise instead."""
+    return torch.diag(torch.tensor(mass_diag(p), dtype=dtype, device=device))
+
+
+def control_matrix(device=None, dtype=torch.float64):
+    """B (5, 2): the controls act on the pusher's x and y."""
+    B = torch.zeros((NQ, NU), dtype=dtype, device=device)
+    B[3, 0] = 1.0
+    B[4, 1] = 1.0
+    return B
 
 
 def unpack_z(z):

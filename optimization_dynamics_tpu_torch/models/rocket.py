@@ -91,7 +91,23 @@ def mrp_rotation(p):
     pp = _dot(p, p)[..., None, None]
     S = _skew(p)
     eye = torch.eye(3, dtype=p.dtype, device=p.device)
-    return eye + (4.0 * (1.0 - pp) * S + 8.0 * S @ S) / (1.0 + pp) ** 2
+    return eye + (4.0 * (1.0 - pp) * S + 8.0 * _mm3(S, S)) / (1.0 + pp) ** 2
+
+
+# The products of 3-vectors and 3x3 matrices as elementwise sums, in the
+# order k = 0, 1, 2: over a batch of lanes, ``@`` is a cuBLAS batched
+# product whose kernel follows the batch count, so a lane's step would
+# move in its last bits with the width of the rollout it is in.
+def _mm3(A, B):
+    """``A @ B`` for (..., 3, 3) matrices."""
+    return (A[..., :, 0:1] * B[..., 0:1, :] + A[..., :, 1:2] * B[..., 1:2, :]
+            + A[..., :, 2:3] * B[..., 2:3, :])
+
+
+def _mv3(A, v):
+    """``A @ v`` for (..., 3, 3) matrices and (..., 3) vectors."""
+    return (A[..., :, 0] * v[..., 0:1] + A[..., :, 1] * v[..., 1:2]
+            + A[..., :, 2] * v[..., 2:3])
 
 
 def ode(params: RocketParams, x, u):
@@ -109,7 +125,7 @@ def ode(params: RocketParams, x, u):
                    - 2.0 * torch.linalg.cross(w, r, dim=-1)
                    + 2.0 * _dot(w, r)[..., None] * r)
     g = torch.stack([zero, zero, zero - params.gravity], dim=-1)
-    vdot = g + (mrp_rotation(r) @ u[..., 0:3, None])[..., 0] / params.mass
+    vdot = g + _mv3(mrp_rotation(r), u[..., 0:3]) / params.mass
     num = tau - torch.linalg.cross(w, Jw, dim=-1)
     wdot = torch.stack([num[..., 0] / J[0], num[..., 1] / J[1],
                         num[..., 2] / J[2]], dim=-1)

@@ -374,3 +374,21 @@ def test_convert_acrobot_params_and_aux():
     assert isinstance(aux, ta.AcrobotAux)
     assert aux.h.dtype == torch.float32 and aux.h.shape == ()
     assert float(aux.h) == pytest.approx(0.05)
+
+
+@pytest.mark.parametrize("which", ["stage", "terminal"])
+def test_costs_equal_their_dot_product_forms(which):
+    """``examples/acrobot.py``'s costs (explicit sums) against the dot
+    products they were written with, on the deploy problem."""
+    from optimization_dynamics_tpu_torch.examples import acrobot as ex
+
+    from tests.test_torch_cartpole import check_cost_forms
+
+    def velocity_cost(x):
+        v1 = (x[2:] - x[:2]) / ex.H
+        return 0.5 * 0.1 * v1 @ v1
+
+    old = {"stage": lambda t, x, u: velocity_cost(x) + 0.5 * u @ u,
+           "terminal": velocity_cost}[which]
+    prob, x0, _, _ = ex.build_deploy_problem("cpu")
+    check_cost_forms(prob, which, old, x0, seed=163)

@@ -109,3 +109,20 @@ def test_wrapper_takes_plain_only_on_cpu():
     assert batched_solve.launches == before
     with pytest.raises(ValueError):
         batched_solve(At.to("meta"), bt.to("meta"))
+
+
+@pytest.mark.parametrize("n", [2, 6, 10, 12])
+def test_newton_solve_matches_jax(n):
+    """``ops/linalg.py::newton_solve``, K2 on a batch of one at (n, 1),
+    against the reference's ``newton_solve`` (LU) at 1e-12 on
+    well-conditioned seeded systems."""
+    from optimization_dynamics_tpu.ops.linalg import (
+        newton_solve as jax_newton_solve)
+    from optimization_dynamics_tpu_torch.ops.linalg import newton_solve
+
+    A, b = _random_systems(B=1, n=n, k=1, seed=170 + n)
+    got = newton_solve(torch.as_tensor(A[0]), torch.as_tensor(b[0, :, 0]))
+    want = np.asarray(jax_newton_solve(jnp.asarray(A[0]),
+                                       jnp.asarray(b[0, :, 0])))
+    assert got.shape == (n,) and got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-12, rtol=0)

@@ -6,6 +6,7 @@ float64, so they agree to round-off (atol 1e-12); the cone step lengths
 are checked at the reference tests' own tolerance (1e-10).
 """
 
+import inspect
 import re
 from pathlib import Path
 
@@ -205,3 +206,60 @@ def test_convert_options_round_trip():
                                           parallel_linesearch=True,
                                           verbose=True))
     assert to.parallel_riccati and to.parallel_linesearch and to.verbose
+
+
+def check_cost_forms(prob, which, old, x0, seed, n=64, scale=0.5,
+                     tol=4e-16):
+    """The problem's stage or terminal cost (explicit sums) against
+    ``old``, the same cost as the dot products it was written with, on
+    ``n`` seeded lanes around ``x0``: lane by lane and vmapped as
+    ``make_phases`` calls them, each to a relative ``tol``. The products
+    are the same; the sums add them in another order (on the CPU the
+    vmapped dot product adds left to right, ``torch.sum`` in vector
+    lanes). Returns how many lanes the two forms give bit for bit."""
+    rng = np.random.default_rng(seed)
+    xs = x0[None] + scale * torch.as_tensor(
+        rng.standard_normal((n, prob.nx)), dtype=x0.dtype)
+    if which == "stage":
+        ts = torch.arange(n) % (prob.T - 1)
+        us = torch.as_tensor(rng.standard_normal((n, prob.nu)),
+                             dtype=x0.dtype)
+        new, args = prob.stage_cost, (ts, xs, us)
+        lane = lambda f, i: f(int(ts[i]), xs[i], us[i])
+    else:
+        new, args = prob.terminal_cost, (xs,)
+        lane = lambda f, i: f(xs[i])
+    rel = lambda a, b: float(((a - b).abs() / b.abs()).max())
+    want = torch.func.vmap(old)(*args)
+    got = torch.func.vmap(new)(*args)
+    assert rel(got, want) <= tol, rel(got, want)
+    got_l = torch.stack([lane(new, i) for i in range(n)])
+    want_l = torch.stack([lane(old, i) for i in range(n)])
+    assert rel(got_l, want_l) <= tol, rel(got_l, want_l)
+    return int((got == want).sum())
+
+
+@pytest.mark.parametrize("which", ["stage", "terminal"])
+def test_costs_equal_their_dot_product_forms(which):
+    """``examples/cartpole.py::build_problem``'s costs (also the deploy
+    problem's) against the dot products they were written with."""
+    from optimization_dynamics_tpu_torch.examples import cartpole as ex
+
+    prob, x0, _, _ = ex.build_problem("friction", device="cpu")
+    xT = inspect.getclosurevars(prob.terminal_cost).nonlocals["xT"]
+    old = {"stage": lambda t, x, u: u @ u,
+           "terminal": lambda x: (x - xT) @ (x - xT)}[which]
+    check_cost_forms(prob, which, old, x0, seed=160)
+    check_cost_forms(ex.build_deploy_problem("cpu")[0], which, old, x0,
+                     seed=161)
+
+
+def test_kinematics_matches_jax():
+    """The pole tip, on seeded configurations, against the reference at
+    1e-12."""
+    p = tcp.CartpoleParams()
+    qs = np.random.default_rng(162).standard_normal((16, 2))
+    got = tcp.kinematics(p, _t(qs)).numpy()
+    want = np.stack([np.asarray(jcp.kinematics(jcp.CartpoleParams(), q))
+                     for q in qs])
+    np.testing.assert_allclose(got, want, atol=1e-12, rtol=0)

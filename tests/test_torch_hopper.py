@@ -433,3 +433,34 @@ def test_convert_hopper_params_and_aux():
         jh.HopperAux(h=0.05, friction=jnp.array([0.2, 0.4])), "cpu", F64)
     assert aux.friction.dtype == F64
     assert aux.friction.tolist() == [0.2, 0.4]
+
+
+@pytest.mark.parametrize("which", ["stage", "terminal"])
+def test_costs_equal_their_dot_product_forms(which):
+    """``examples/hopper.py``'s costs (explicit sums) against the dot
+    products they were written with, on the deploy problem (the lanes'
+    timesteps cover the first stage's cost and the others')."""
+    import inspect
+
+    from optimization_dynamics_tpu_torch.examples import hopper as ex
+
+    from tests.test_torch_cartpole import check_cost_forms
+
+    prob, x0, _, _ = ex.build_deploy_problem("cpu")
+    c = inspect.getclosurevars(prob.stage_cost).nonlocals
+    x_ref, w8, uw = c["x_ref"], c["w8"], c["uw"]
+    q_cost, r_cost = c["q_cost"], c["r_cost"]
+
+    def stage(t, x, u):
+        dx = x[0:8] - x_ref
+        first = 0.5 * dx @ (w8 * dx) + 0.5 * u @ (uw * u)
+        u2 = u[0:2]
+        rest = 0.5 * q_cost * dx @ (w8 * dx) + 0.5 * r_cost * u2 @ u2
+        return ex._select(t == 0, first, rest)
+
+    def terminal(x):
+        dx = x[0:8] - x_ref
+        return 0.5 * dx @ dx
+
+    old = {"stage": stage, "terminal": terminal}[which]
+    check_cost_forms(prob, which, old, x0, seed=166, scale=0.1)

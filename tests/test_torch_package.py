@@ -27,6 +27,8 @@ def test_import_loads_no_jax():
             "import optimization_dynamics_tpu_torch; "
             "import optimization_dynamics_tpu_torch.solver.ilqr_segmented; "
             "import optimization_dynamics_tpu_torch.solver.ilqr_batched; "
+            "import optimization_dynamics_tpu_torch.parallel.mesh; "
+            "import optimization_dynamics_tpu_torch.scripts.multihost_worker; "
             "print(sorted(m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'optimization_dynamics_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -324,3 +324,65 @@ def test_convert_planar_push_params():
     assert tuple(tp) == tuple(p) and isinstance(tp, tpp.PlanarPushParams)
     assert convert.planar_push_aux(
         jpp.PlanarPushAux(h=jnp.float32(0.1))).h == pytest.approx(0.1)
+
+
+@pytest.mark.parametrize("which", ["stage", "terminal"])
+@pytest.mark.parametrize("mode", ["translate", "rotate"])
+def test_costs_equal_their_dot_product_forms(mode, which):
+    """``examples/planar_push.py``'s costs (explicit sums) against the dot
+    products they were written with, on the deploy problem."""
+    import inspect
+
+    from optimization_dynamics_tpu_torch.examples import planar_push as ex
+
+    from tests.test_torch_cartpole import check_cost_forms
+
+    prob, x0, _, _ = ex.build_deploy_problem("cpu", mode=mode)
+    c = inspect.getclosurevars(prob.stage_cost).nonlocals
+    vw, xw, uw, xT = c["vw"], c["xw"], c["uw"], c["xT"]
+
+    def terminal(x):
+        v1 = (x[5:] - x[:5]) / ex.H
+        dx = x - xT
+        return 0.5 * v1 @ (vw * v1) + 0.5 * dx @ (xw * dx)
+
+    def stage(t, x, u):
+        v1 = (x[5:] - x[:5]) / ex.H
+        dx = x - xT
+        return (0.5 * v1 @ (vw * v1) + 0.5 * dx @ (xw * dx)
+                + 0.5 * uw * u @ u)
+
+    old = {"stage": stage, "terminal": terminal}[which]
+    check_cost_forms(prob, which, old, x0, seed=164, scale=0.05)
+
+
+@pytest.mark.parametrize("helper", ["sd_2d_box", "mass_matrix",
+                                    "control_matrix", "rotation_matrix"])
+def test_dropped_helpers_match_jax(helper):
+    """The reference's module-level helpers of ``models/planar_push.py``
+    and ``models/base.py::rotation_matrix``, at 1e-12 on seeded inputs."""
+    from optimization_dynamics_tpu.models import base as jbase
+    from optimization_dynamics_tpu_torch.models import base as tbase
+
+    rng = np.random.default_rng(165)
+    if helper == "sd_2d_box":
+        ps = 0.2 * rng.standard_normal((16, 2))
+        poses = 0.1 * rng.standard_normal((16, 3))
+        got = tpp.sd_2d_box(torch.as_tensor(ps), torch.as_tensor(poses))
+        want = np.stack([np.asarray(jpp.sd_2d_box(jnp.asarray(p),
+                                                 jnp.asarray(q)))
+                         for p, q in zip(ps, poses)])
+    elif helper == "mass_matrix":
+        got = tpp.mass_matrix(tpp.PlanarPushParams())
+        want = np.asarray(jpp.mass_matrix(jpp.PlanarPushParams()))
+    elif helper == "control_matrix":
+        got = tpp.control_matrix()
+        want = np.asarray(jpp.control_matrix())
+    else:
+        assert "rotation_matrix" in tbase.__all__
+        angles = 3.0 * rng.standard_normal(16)
+        got = tbase.rotation_matrix(torch.as_tensor(angles))
+        want = np.stack([np.asarray(jbase.rotation_matrix(a))
+                         for a in angles])
+    assert got.dtype == torch.float64 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-12, rtol=0)

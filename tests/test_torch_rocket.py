@@ -387,3 +387,35 @@ def test_convert_rocket_params():
     assert isinstance(tp, tr.RocketParams)
     assert tuple(tp) == tuple(p) and tp.inertia == (0.1, 0.2, 3e-5)
     assert convert.rocket_params(jr.RocketParams()) == tr.RocketParams()
+
+
+@pytest.mark.parametrize("which", ["stage", "terminal"])
+def test_costs_equal_their_dot_product_forms(which):
+    """``examples/rocket.py``'s costs (explicit sums) against the dot
+    products they were written with, on the deploy problem. The terminal
+    cost is one sum of 12 nonnegative terms: two orders of such a sum
+    differ by at most 2 (12 - 1) 2**-53 relative (each is within (n - 1)
+    2**-53 of the exact sum), and these lanes reach 4.9e-16, above the
+    4e-16 the other costs are held to; it is held to that bound."""
+    import inspect
+
+    from optimization_dynamics_tpu_torch.examples import rocket as ex
+
+    from tests.test_torch_cartpole import check_cost_forms
+
+    prob, x0, _, _ = ex.build_deploy_problem("cpu")
+    c = inspect.getclosurevars(prob.stage_cost).nonlocals
+    qw, rw, xT = c["qw"], c["rw"], c["xT"]
+    qwT = inspect.getclosurevars(prob.terminal_cost).nonlocals["qwT"]
+
+    def stage(t, x, u):
+        dx = x - xT
+        return 0.5 * dx @ (qw * dx) + 0.5 * u @ (rw * u)
+
+    def terminal(x):
+        dx = x - xT
+        return 0.5 * dx @ (qwT * dx)
+
+    old = {"stage": stage, "terminal": terminal}[which]
+    tol = 4e-16 if which == "stage" else 2 * (12 - 1) * 2.0 ** -53
+    check_cost_forms(prob, which, old, x0, seed=167, tol=tol)
