@@ -161,12 +161,13 @@ kernels/csrc`` and runs phases 0-24, each printing one ``#`` line:
    y = x and at its solutions; the Jacobians row-interleaved as the
    solver and the sweep pass them) at the sweep's width 15,360 (B x
    (T-1) at B=256) and the Newton systems at a rollout's 512 too,
-   through the wrapper's route and each of its two kernels (tile,
-   per-thread), forced by the width cut, x bit for bit from contiguous
-   and row-interleaved systems, relative residual <= 1e-12 in float64
-   and <= 1e-5 in float32; float32 timed through each kernel and the
-   route, one call and queued, beside the plain version and
-   ``torch.linalg.solve``, with the bound;
+   through the wrapper's route and each of its two kernels (the narrow
+   one: the tile, at (12, 1) the shuffle kernel; per-thread), forced by
+   the width cut, x bit for bit from contiguous and row-interleaved
+   systems, relative residual <= 1e-12 in float64 and <= 1e-5 in
+   float32, max|dx| against the plain version printed; float32 timed
+   through each kernel and the route, one call and queued, beside the
+   plain version and ``torch.linalg.solve``, with the bound;
 15. the rocket main path at full width: the rocket deploy problem
    (projection mode, float32, T=61) solved by the segmented executor at
    B=256 for one AL round of three inner iterations; outputs finite, the
@@ -176,21 +177,23 @@ kernels/csrc`` and runs phases 0-24, each printing one ``#`` line:
    launch on the kernel its width picks), K2 launched at (10, 4), (12, 1)
    and (12, 16) and only there (none at (10, 1): the projection's Newton
    steps run inside K1), each launch on the kernel its width picks
-   (launches by shape, kernel and width printed); then the four-lane
-   float64 card-against-CPU check of phase 3 (the CPU side runs K1's
-   plain version);
+   (launches by shape, kernel and width printed: K1 on its warp kernel
+   up to its cut, K2 at (12, 1) on its shuffle kernel up to its cut);
+   then the four-lane float64 card-against-CPU check of phase 3 (the CPU
+   side runs K1's plain version);
 16. K1 on ``rocket_projection`` (the thrust projection, nz=10) against its
    plain version at the deploy's projection options (r_tol 3e-5,
    kappa_tol 1e-4, 25 line-search candidates): 15,360 cold projections
    (the sweep's width, u_bar = 6 N(0, 1), u_max = 12.5,
    ``rocket_projection_batch`` numpy seed 70) and 512 (a rollout step's
    width, seed 71), each through the wrapper's route and through each of
-   K1's two kernels (tile, per-thread), forced by the width cut; phase
-   1's tolerances in float64, and in float32 converged counts within 1%,
-   max|du_hat| <= 1e-4 where both converge and every converged thrust in
-   the cone (``||u_xy|| <= u_z + 1e-4``); float32 timed through each
-   kernel, one call and queued, with its bound, the plain version once a
-   case;
+   K1's two kernels (the warp kernel, a warp a scenario; per-thread),
+   forced by the width cut; phase 1's tolerances in float64, and in
+   float32 converged counts within 1%, max|du_hat| <= 1e-4 where both
+   converge and every converged thrust in the cone (``||u_xy|| <= u_z +
+   1e-4``); the mean and the largest iteration count; float32 timed
+   through each kernel, one call and queued, with its bound, the plain
+   version once a case;
 17. K1 on ``hopper`` (nz=20) against its plain version at the hopper
    deploy's accelerator IP options: the deploy's own solves along
    open-loop rollouts of its initial controls (``hopper_deploy_batch``),
@@ -396,12 +399,16 @@ are K2 on phase 12's 5,120 hopper Newton and IFT systems, with their
 launches from phase 13's eager run; ``riccati_n16_u10`` and
 ``riccati_n16_u10_tile`` K3's per-thread and tile kernels at (16, 10) on
 256 lanes, with their launches from phase 13's K3 run;
-``batched_solve_n10_k1``, ``batched_solve_n10_k4``,
-``batched_solve_n12_k1`` and ``batched_solve_n12_k16`` are K2 on phase
-14's 15,360 rocket systems at each shape, ``ms`` and ``ms_device``
-through the kernel the width picks (``kernel``), each kernel's forced
-times beside them, with their launches from phase 15, in all and by
-kernel; ``batched_solve_n10_k1`` and ``batched_solve_n20_k1``, whose
+``batched_solve_n10_k1``, ``batched_solve_n10_k4`` and
+``batched_solve_n12_k16`` are K2 on phase 14's 15,360 rocket systems at
+each shape, ``ms`` and ``ms_device`` through the kernel the width picks
+(``kernel``), each kernel's forced times beside them, with their
+launches from phase 15, in all and by kernel;
+``batched_solve_n12_k1_shfl`` and ``batched_solve_n12_k1`` are K2's
+shuffle and per-thread kernels at (12, 1), each forced, timed at 512
+and at 15,360 Newton systems (``case`` the width it serves on the path,
+the other as ``ms_<case>``), with their launches from phase 15;
+``batched_solve_n10_k1`` and ``batched_solve_n20_k1``, whose
 Newton solves now run inside K1, keep their entries with their launches
 on phases 15 and 13, 0); ``fused_ip``, ``fused_ip_tile``,
 ``batched_solve`` and ``batched_solve_tile`` carry the scalar path's
@@ -410,8 +417,8 @@ launches (phase 18) as ``launches_scalar`` and the cold deploy sweep's
 ``fused_ip_rocket_projection`` and
 ``fused_ip_hopper`` are K1's per-thread kernels on those functors, timed
 at the sweeps' widths (phases 16, 17: 15,360 cold projections, 5,120
-warm hopper solves), ``fused_ip_rocket_projection_tile`` and
-``fused_ip_hopper_tile`` their tile kernels, timed at 512 cold lanes,
+warm hopper solves), ``fused_ip_rocket_projection_warp`` and
+``fused_ip_hopper_tile`` their narrow kernels, timed at 512 cold lanes,
 each with ``ms_device`` and its time at the other width beside it
 (``ms_<case>``), their launches from phases 15 and 13. ``riccati`` and
 ``riccati_tile`` carry phase 22's times at (2, 1) and (4, 2) (B=512,
@@ -635,28 +642,30 @@ def _saddle(B: int, k: int, seed: int, device, dtype):
 
 
 def _k2_routes(A, b, xp, res_tol: float, what: str, timed: bool) -> dict:
-    """K2's tile and per-thread kernels on (A, b), each forced by the cut:
-    relative residual <= res_tol each, max|dx| against the plain version's
-    xp, x bit for bit the same from (A, b) contiguous and interleaved row
-    by row (the kernels read strides), and whether the two kernels agree
-    bit for bit; ``timed``: each timed on (A, b) as given, one call
-    (``ms``) and queued (``ms_device``)."""
+    """K2's narrow kernel (the tile; the shuffle kernel at (12, 1)) and its
+    per-thread kernel on (A, b), each forced by the cut and keyed by its
+    name: relative residual <= res_tol each, max|dx| against the plain
+    version's xp, x bit for bit the same from (A, b) contiguous and
+    interleaved row by row (the kernels read strides), and whether the
+    two kernels agree bit for bit; ``timed``: each timed on (A, b) as
+    given, one call (``ms``) and queued (``ms_device``)."""
     import torch
 
     from optimization_dynamics_tpu_torch.ops.kernels._build import (
-        BATCHED_SOLVE_TILE_MAX_B)
+        BATCHED_SOLVE_TILE_MAX_B, batched_solve_narrow)
     from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
         batched_solve)
 
     key = (A.shape[1], b.shape[2])
+    narrow = batched_solve_narrow(*key)
     out, xs = {}, {}
-    for route in ("tile", "thread"):
-        run = cut_routed(BATCHED_SOLVE_TILE_MAX_B, key, route == "tile",
+    for route in (narrow, "thread"):
+        run = cut_routed(BATCHED_SOLVE_TILE_MAX_B, key, route == narrow,
                          batched_solve)
         tiles = batched_solve.tile_launches
         x = run(A, b)
         torch.cuda.synchronize()
-        _check(batched_solve.tile_launches - tiles == (route == "tile"),
+        _check(batched_solve.tile_launches - tiles == (route == narrow),
                "K2 %s: not on the %s kernel" % (what, route))
         _check(bool(torch.isfinite(x).all()), "K2 %s %s: x not finite"
                % (what, route))
@@ -674,9 +683,9 @@ def _k2_routes(A, b, xp, res_tol: float, what: str, timed: bool) -> dict:
             out[route]["ms"] = cuda_ms(lambda: run(A, b))
             out[route]["ms_device"] = device_ms(lambda: run(A, b))
         xs[route] = x
-    out["bitwise"] = bool(torch.equal(xs["tile"], xs["thread"]))
-    out["max_dx_tile_thread"] = float((xs["tile"] - xs["thread"]).abs()
-                                      .max())
+    out["bitwise"] = bool(torch.equal(xs[narrow], xs["thread"]))
+    out["max_dx_%s_thread" % narrow] = float((xs[narrow] - xs["thread"])
+                                             .abs().max())
     return out
 
 
@@ -782,22 +791,23 @@ def _zero_counts(wrapper) -> None:
     wrapper.widths.clear()
 
 
-def _split_counts(name: str, wrapper) -> dict:
-    """A K2 or K3 wrapper's launches since ``_zero_counts``: ``name`` its
-    per-thread (or group) kernel's, ``name + "_tile"`` its tile
-    kernel's."""
+def _split_counts(name: str, wrapper, narrow: str = "tile") -> dict:
+    """A K1, K2 or K3 wrapper's launches since ``_zero_counts``: ``name``
+    its per-thread (or group) kernel's, ``name + "_" + narrow`` its narrow
+    kernel's (the tile; the rocket projection's warp kernel)."""
     return {name: wrapper.launches - wrapper.tile_launches,
-            name + "_tile": wrapper.tile_launches}
+            name + "_" + narrow: wrapper.tile_launches}
 
 
 def _routed_widths(what: str, wrapper, cut: int) -> dict:
-    """A K2 or K3 wrapper's launches by kernel and width since
+    """A K1, K2 or K3 wrapper's launches by kernel and width since
     ``_zero_counts``, each checked to be on the kernel its width picks:
-    the tile kernel up to ``cut`` (the path's shape in
+    the narrow kernel (a tile, or the rocket projection's warp) up to
+    ``cut`` (the path's entry of ``FUSED_IP_TILE_MAX_B``,
     ``BATCHED_SOLVE_TILE_MAX_B`` or ``RICCATI_TILE_MAX_B``), else the
     per-thread one."""
     widths = {"%s_%d" % kb: n for kb, n in sorted(wrapper.widths.items())}
-    _check(all((route == "tile") == (b <= cut)
+    _check(all((route != "thread") == (b <= cut)
                for route, b in wrapper.widths),
            "%s launches off their route: %s" % (what, widths))
     return widths
@@ -1946,7 +1956,7 @@ def phase_rocket(device) -> dict:
 
     from optimization_dynamics_tpu_torch.examples import rocket as ex
     from optimization_dynamics_tpu_torch.ops.kernels._build import (
-        BATCHED_SOLVE_TILE_MAX_B, FUSED_IP_TILE_MAX_B)
+        BATCHED_SOLVE_TILE_MAX_B, FUSED_IP_TILE_MAX_B, batched_solve_route)
     from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
         batched_solve)
     from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import fused_ip
@@ -1984,7 +1994,8 @@ def phase_rocket(device) -> dict:
     launches = {"batched_solve_n%d_k%d" % nk: c
                 for nk, c in sorted(batched_solve.shapes.items())}
     launches["batched_solve_n10_k1"] = batched_solve.shapes[10, 1]
-    launches.update(_split_counts("fused_ip_rocket_projection", fused_ip))
+    launches.update(_split_counts("fused_ip_rocket_projection", fused_ip,
+                                  "warp"))
     shape_widths = dict(batched_solve.shape_widths)
     k1_widths = _routed_widths(
         "K1 (rocket_projection)", fused_ip,
@@ -2004,13 +2015,14 @@ def phase_rocket(device) -> dict:
     # every projection solve in K1: K2 only at the projection's IFT
     # shape and the midpoint solve's two, none at (10, 1)
     _check(launches["fused_ip_rocket_projection"]
-           + launches["fused_ip_rocket_projection_tile"] > 0,
+           + launches["fused_ip_rocket_projection_warp"] > 0,
            "K1 (rocket_projection) not launched on the rocket path")
     _check(set(batched_solve.shapes) == {(10, 4), (12, 1), (12, 16)},
            "rocket K2 launches off its three shapes: %s"
            % sorted(batched_solve.shapes))
-    _check(all((route == "tile") == (w <= BATCHED_SOLVE_TILE_MAX_B[n, k])
-               for n, k, route, w in shape_widths),
+    _check(all(route == batched_solve_route(n, k, w)
+               and (route != "thread") == (w <= BATCHED_SOLVE_TILE_MAX_B[
+                   n, k]) for n, k, route, w in shape_widths),
            "rocket K2 launches off their route: %s" % shape_widths)
     cone = ex.thrust_cone_ok(res.us)
     _check(bool(cone.all()), "rocket thrust outside the cone on %d lanes"
@@ -2062,16 +2074,19 @@ def _k1_model_phase(device, cases, opts, nq: int, f32_tol: float,
     """K1 on one of its later functors against its plain version: every
     case of ``cases(dtype, kern) -> {case: (model, z0s, thetas)}`` (``kern``
     the K1 solver of that dtype, for warm starts) through the wrapper's
-    route and through each of K1's two kernels, forced by the width cut;
-    phase 1's tolerances (``_k1_agreement``), float32 on the first ``nq``
-    entries of z within ``f32_tol``; ``cone``: every converged float32
-    thrust in the cone (``||u_xy|| <= u_z + 1e-4``). float32 timed
-    through each kernel, one call and queued, with the bound; the plain
-    version once a case."""
+    route and through each of K1's two kernels, forced by the width cut
+    and keyed by name (the narrow kernel: the hopper model's ``tile``,
+    the rocket projection's ``warp``; ``thread``); phase 1's tolerances
+    (``_k1_agreement``), float32 on the first ``nq`` entries of z within
+    ``f32_tol``; ``cone`` (the rocket's projection): every converged
+    float32 thrust in the cone (``||u_xy|| <= u_z + 1e-4``), and the
+    largest iteration count beside the mean. float32 timed through each
+    kernel, one call and queued, with the bound; the plain version once a
+    case."""
     import torch
 
     from optimization_dynamics_tpu_torch.ops.kernels._build import (
-        FUSED_IP_TILE_MAX_B)
+        FUSED_IP_TILE_MAX_B, fused_ip_narrow)
     from optimization_dynamics_tpu_torch.ops.kernels.fused_ip import (
         fused_ip, make_fused_ip_plain, make_fused_ip_solver)
 
@@ -2086,20 +2101,23 @@ def _k1_model_phase(device, cases, opts, nq: int, f32_tol: float,
             plain = make_fused_ip_plain(model, opts, device, dtype)
             sp, trials = _with_trials(lambda: plain(z0, th))
             cut = FUSED_IP_TILE_MAX_B["fused_ip", model.kernel]
+            narrow = fused_ip_narrow(model.kernel)
             r = dict(lanes=int(z0.shape[0]),
-                     kernel="tile" if z0.shape[0] <= cut else "thread")
-            for route in ("route", "tile", "thread"):
+                     kernel=narrow if z0.shape[0] <= cut else "thread")
+            for route in ("route", narrow, "thread"):
                 solve = kern if route == "route" else routed(
-                    model.kernel, route == "tile", kern)
+                    model.kernel, route == narrow, kern)
                 tiles = fused_ip.tile_launches
                 sk = solve(z0, th)
                 torch.cuda.synchronize()
                 if route != "route":
                     _check(fused_ip.tile_launches - tiles
-                           == (route == "tile"), "K1 %s %s %s: not on the "
+                           == (route == narrow), "K1 %s %s %s: not on the "
                            "%s kernel" % (model.kernel, name, case, route))
                 a = _k1_agreement(sk, sp, dtype, nq=nq, f32_tol=f32_tol)
                 a["mean_iters"] = float(sk.iterations.float().mean())
+                if cone:
+                    a["max_iters"] = int(sk.iterations.max())
                 if cone and dtype == torch.float32:
                     u = sk.z[:, 0:3][sk.converged]
                     gap = float((torch.linalg.vector_norm(u[:, 0:2], dim=1)
@@ -3612,7 +3630,6 @@ def main() -> int:
             bound_by=k3h["bound_by"], library_ms=None))
     for nk, case in (("n10_k1", "proj_newton_15360"),
                      ("n10_k4", "proj_ift_15360"),
-                     ("n12_k1", "dyn_newton_15360"),
                      ("n12_k16", "dyn_ift_15360")):
         r = rk["f32"][case]
         name = "batched_solve_" + nk
@@ -3634,23 +3651,50 @@ def main() -> int:
             ms_device_thread=r["routes"]["thread"]["ms_device"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    # K2 at (12, 1), the midpoint Newton steps: the shuffle kernel and the
+    # per-thread kernel, each forced by the cut, timed at 512 (a rollout's
+    # width) and 15,360 (the sweep's), the width each serves on the path
+    # first, with its launches in phase 15
+    for route, name, main_case, other in (
+            ("thread", "batched_solve_n12_k1", "dyn_newton_15360",
+             "dyn_newton_512"),
+            ("shfl", "batched_solve_n12_k1_shfl", "dyn_newton_512",
+             "dyn_newton_15360")):
+        r, o = rk["f32"][main_case], rk["f32"][other]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=src + "batched_solve.cu",
+            replaces=tpu + "batched_solve.py:119",
+            launches=ro["launches_by_kernel"].get(
+                "batched_solve_n12_k1_" + route, 0),
+            max_abs_err=max(rk["f32"][c]["routes"][route]["max_dx"]
+                            for c, cnk, _ in ROCKET_K2_CASES
+                            if cnk == (12, 1)),
+            case=main_case, ms=r["routes"][route]["ms"],
+            ms_device=r["routes"][route]["ms_device"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            **{"ms_" + other: o["routes"][route]["ms"],
+               "ms_device_" + other: o["routes"][route]["ms_device"],
+               "bound_ms_" + other: o["bound_ms"]}))
     # K1's later functors: the per-thread kernel timed at the sweep's
-    # width, the tile kernel at a rollout step's, each forced by the cut,
-    # with its time at the other width beside it
-    for name, res, path, source, sweep in (
+    # width, the narrow kernel (the rocket projection's warp, the hopper
+    # model's tile) at a rollout step's, each forced by the cut, with its
+    # time at the other width beside it
+    for name, res, path, source, sweep, narrow in (
             ("fused_ip_rocket_projection", kr, ro, "fused_ip_rocket.cu",
-             "cold_15360"),
+             "cold_15360", "warp"),
             ("fused_ip_hopper", kh, ho["eager"], "fused_ip_hopper.cu",
-             "warm_5120")):
+             "warm_5120", "tile")):
         for route, case, other in (("thread", sweep, "cold_512"),
-                                   ("tile", "cold_512", sweep)):
+                                   (narrow, "cold_512", sweep)):
             r = res["f32"][case][route]
+            key = name + ("" if route == "thread" else "_" + narrow)
             kernels.append(dict(
-                name=name + ("_tile" if route == "tile" else ""),
-                route="cuda", source=src + source,
+                name=key, route="cuda",
+                source=src + ("ip_warp.cuh" if route == "warp" else source),
                 replaces=tpu + "fused_ip.py:410",
-                launches=path["launches"][name + ("_tile" if route == "tile"
-                                                  else "")],
+                launches=path["launches"][key],
                 max_abs_err=max(c[route]["max_dq"]
                                 for c in res["f32"].values()),
                 ms=r["ms"], ms_device=r["ms_device"], case=case,

@@ -38,11 +38,13 @@ import torch
 
 __all__ = ["library_path", "build", "load_library", "ptxas_report",
            "FUSED_IP_FUNCTORS", "FUSED_IP_TILE_MAX_B",
-           "BATCHED_SOLVE_SHAPES", "BATCHED_SOLVE_TILE_MAX_B",
+           "FUSED_IP_WARP_FUNCTORS", "BATCHED_SOLVE_SHAPES",
+           "BATCHED_SOLVE_TILE_MAX_B", "BATCHED_SOLVE_SHFL_SHAPES",
            "RICCATI_SHAPES", "RICCATI_TILE_MAX_B", "UNROLL_MAX_N",
            "FUSED_ROLLOUT_FUNCTORS", "fused_ip_symbol", "fused_ip_narrow",
            "fused_ip_narrow_symbol", "batched_solve_symbol",
-           "batched_solve_route", "riccati_symbol", "riccati_route",
+           "batched_solve_narrow", "batched_solve_route",
+           "riccati_symbol", "riccati_route",
            "fused_rollout_symbol", "fused_rollout_tile_symbol"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -62,9 +64,10 @@ FUSED_IP_FUNCTORS = {"cartpole_friction": (10, 8),  # name -> (nz, ntheta)
                      "hopper": (20, 13)}
 # (wrapper, functor) pairs that also have a narrow kernel, and the
 # widest batch the wrapper sends it; wider launches run the per-thread
-# kernel. The narrow kernel runs a scenario on several threads: a tile
-# (csrc/ip_tile.cuh) where the NZ + 1 Jacobian columns fit a warp, else a
-# 64-thread group (csrc/ip_group.cuh; ``fused_ip_narrow``). A narrow
+# kernel. The narrow kernel runs a scenario on several threads: a whole
+# warp for the functors of FUSED_IP_WARP_FUNCTORS (csrc/ip_warp.cuh), a
+# tile (csrc/ip_tile.cuh) where the NZ + 1 Jacobian columns fit a warp,
+# else a 64-thread group (csrc/ip_group.cuh; ``fused_ip_narrow``). A narrow
 # launch leaves most SMs idle with a thread a scenario; a wide one fills
 # the card, and then the per-thread kernel, with fewer instructions a
 # scenario, is the faster. Each cut is the widest measured width at
@@ -77,11 +80,12 @@ FUSED_IP_FUNCTORS = {"cartpole_friction": (10, 8),  # name -> (nz, ntheta)
 # kernel wins up to 51,200 (the widest width swept); the B=256 deploy
 # sends at most 6,400. K4 (cartpole): it wins at 12,288 and loses at
 # 16,384; the deploy sends at most 2,048. K1 on the rocket's projection
-# (always cold): the 16-thread tile wins up to 3,840 and loses from
-# 15,360 (0.386 against 0.244 ms queued: the per-thread kernel runs all
-# 25 line-search candidates, but with fewer instructions a scenario);
-# the B=256 deploy sends 32-1,024 (the rollouts, the compacted sweeps)
-# and 15,360 (the full sweeps). K1 on the hopper model: the 32-thread
+# (always cold): its warp kernel beats the per-thread kernel up to 3,840
+# and loses from 7,680 (0.181 against 0.237 ms queued at 3,840, 0.304
+# against 0.244 at 7,680: a warp a scenario issues more instructions a
+# scenario, which a launch wide enough to fill the card pays for); the
+# B=256 deploy sends 32-1,024 (the rollouts, the compacted sweeps) and
+# 15,360 (the full sweeps, on the per-thread kernel). K1 on the hopper model: the 32-thread
 # tile wins at every width swept, 32 to 51,200, cold and warm (the
 # per-thread kernel keeps J in local memory: 7.7 against 1.65 ms cold at
 # 5,120), so its 51,200 is the end of the sweep; the deploy sends at
@@ -92,10 +96,18 @@ FUSED_IP_TILE_MAX_B = {("fused_ip", "cartpole_friction"): 16384,
                        ("fused_ip", "rocket_projection"): 3840,
                        ("fused_ip", "hopper"): 51200,
                        ("fused_rollout", "cartpole_friction"): 12288}
+# functors whose narrow kernel is the warp kernel (a warp a scenario, its
+# Newton step in registers and shuffles, every line-search candidate of
+# max_ls <= 32 at once) instead of the tile
+FUSED_IP_WARP_FUNCTORS = frozenset({"rocket_projection"})
 FUSED_ROLLOUT_FUNCTORS = {"cartpole_friction": (2, 1)}  # name -> (nq, nu)
 BATCHED_SOLVE_SHAPES = frozenset({(10, 8), (10, 1), (35, 13), (6, 6),
                                   (2, 1), (2, 6), (20, 1), (20, 13),
                                   (12, 1), (12, 16), (10, 4)})  # (n, k)
+# K2 shapes whose narrow kernel is the shuffle kernel (a 16-lane tile a
+# system, its columns loaded into registers, no shared memory) instead of
+# the tile kernel
+BATCHED_SOLVE_SHFL_SHAPES = frozenset({(12, 1)})
 RICCATI_SHAPES = frozenset({(2, 1), (4, 1), (4, 2), (4, 3), (6, 3),
                             (10, 4), (16, 10)})  # (nx, nu)
 # K2 above this many unknowns runs one 64-thread block a system
@@ -120,11 +132,13 @@ UNROLL_MAX_N = 16
 # (1-2 ulp apart from the per-thread kernel's) moves the f32 deploys.
 # The rocket's shapes, swept from 32 to 61,440 on its own systems
 # (``--model rocket``; the Newton right-hand sides contiguous, as the
-# solver passes them): at (10, 1) and (12, 1) the per-thread kernel
-# takes less of the card's time at every width (0.0044 against 0.0073
-# ms at 32, 0.0068 against 0.0185 at 15,360 for (10, 1)), so their cut
-# is 0; at (10, 4) the tile wins from 128 to 3,840 and ties at 15,360
-# (0.0201 against 0.0200 ms), so its cut is 3,840; at (12, 16) the
+# solver passes them): at (10, 1) the per-thread kernel takes less of the
+# card's time than the tile at every width (0.0044 against 0.0073 ms at
+# 32, 0.0068 against 0.0185 at 15,360), so its cut is 0; at (12, 1) the
+# shuffle kernel wins from 32 to 4,096 and loses from 8,192 (0.0068
+# against 0.0086 ms at 4,096, 0.0103 against 0.0089 at 8,192), so its
+# cut is 4,096; at (10, 4) the tile wins from 128 to 3,840 and ties at
+# 15,360 (0.0201 against 0.0200 ms), so its cut is 3,840; at (12, 16) the
 # per-thread kernel spills (12 x 28 values a thread) and the tile wins
 # at every width (0.052 against 0.114 ms at 15,360), so its 61,440 is
 # the end of the sweep. The shapes not swept take the cut of their
@@ -139,7 +153,7 @@ UNROLL_MAX_N = 16
 # 25,600) and loses only from 102,400, a width no solve sends, so its
 # cut is 0.
 BATCHED_SOLVE_TILE_MAX_B = {(10, 8): 0, (10, 1): 0, (6, 6): 409600,
-                            (2, 1): 0, (2, 6): 0, (12, 1): 0,
+                            (2, 1): 0, (2, 6): 0, (12, 1): 4096,
                             (12, 16): 61440, (10, 4): 3840}  # (n, k) -> B
 RICCATI_TILE_MAX_B = {(2, 1): 0, (4, 1): 409600, (4, 2): 409600,
                       (4, 3): 6400, (6, 3): 6400, (10, 4): 6400,
@@ -152,13 +166,17 @@ def fused_ip_symbol(functor: str, dtype: torch.dtype) -> str:
 
 
 def fused_ip_narrow(functor: str) -> str:
-    """The narrow kernel of a fused IP functor: ``"tile"`` where its NZ + 1
-    Jacobian columns fit a warp, else ``"group"`` (64 threads)."""
+    """The narrow kernel of a fused IP functor: ``"warp"`` for the functors
+    of ``FUSED_IP_WARP_FUNCTORS``, ``"tile"`` where its NZ + 1 Jacobian
+    columns fit a warp, else ``"group"`` (64 threads)."""
+    if functor in FUSED_IP_WARP_FUNCTORS:
+        return "warp"
     return "tile" if FUSED_IP_FUNCTORS[functor][0] + 1 <= 32 else "group"
 
 
 def fused_ip_narrow_symbol(functor: str, dtype: torch.dtype) -> str:
-    """``odt_fused_ip_tile_*`` or ``odt_fused_ip_group_*``."""
+    """``odt_fused_ip_warp_*``, ``odt_fused_ip_tile_*`` or
+    ``odt_fused_ip_group_*``."""
     return "odt_fused_ip_%s_%s_%s" % (fused_ip_narrow(functor), functor,
                                       SUFFIX[dtype])
 
@@ -171,21 +189,30 @@ def fused_rollout_tile_symbol(functor: str, dtype: torch.dtype) -> str:
     return "odt_fused_rollout_tile_%s_%s" % (functor, SUFFIX[dtype])
 
 
+def batched_solve_narrow(n: int, k: int) -> str:
+    """K2's narrow kernel at up to ``UNROLL_MAX_N`` unknowns: ``"shfl"`` at
+    the shapes of ``BATCHED_SOLVE_SHFL_SHAPES``, else ``"tile"``."""
+    return "shfl" if (n, k) in BATCHED_SOLVE_SHFL_SHAPES else "tile"
+
+
 def batched_solve_route(n: int, k: int, B: int) -> str:
     """K2's kernel for a launch of B systems: ``"group"`` above
-    ``UNROLL_MAX_N`` unknowns, else ``"tile"`` up to the shape's cut in
-    ``BATCHED_SOLVE_TILE_MAX_B`` and ``"thread"`` above it."""
+    ``UNROLL_MAX_N`` unknowns, else the shape's narrow kernel (``"tile"``
+    or ``"shfl"``) up to its cut in ``BATCHED_SOLVE_TILE_MAX_B`` and
+    ``"thread"`` above it."""
     if n > UNROLL_MAX_N:
         return "group"
-    return "tile" if B <= BATCHED_SOLVE_TILE_MAX_B[n, k] else "thread"
+    if B <= BATCHED_SOLVE_TILE_MAX_B[n, k]:
+        return batched_solve_narrow(n, k)
+    return "thread"
 
 
 def batched_solve_symbol(n: int, k: int, dtype: torch.dtype,
                          route: str = "thread") -> str:
     """The entry point of K2's ``route`` kernel (the per-thread and group
     kernels share one name, picked by n at compile time)."""
-    tile = "tile_" if route == "tile" else ""
-    return "odt_batched_solve_%sn%d_k%d_%s" % (tile, n, k, SUFFIX[dtype])
+    prefix = route + "_" if route in ("tile", "shfl") else ""
+    return "odt_batched_solve_%sn%d_k%d_%s" % (prefix, n, k, SUFFIX[dtype])
 
 
 def riccati_route(nx: int, nu: int, B: int) -> str:
@@ -216,8 +243,8 @@ SIGNATURES = {
     **{batched_solve_symbol(n, k, dt, route): [_VP, _VP, _VP, _INT]
        + [_I64] * 4 + [_VP]
        for n, k in BATCHED_SOLVE_SHAPES for dt in SUFFIX
-       for route in (("thread", "tile") if n <= UNROLL_MAX_N
-                     else ("group",))},
+       for route in (("thread", batched_solve_narrow(n, k))
+                     if n <= UNROLL_MAX_N else ("group",))},
     **{riccati_symbol(nx, nu, dt, route): [_VP] * 14 + [_INT, _INT, _VP]
        for nx, nu in RICCATI_SHAPES for dt in SUFFIX
        for route in ("thread", "tile")},

@@ -31,10 +31,21 @@ latency and by how its loads coalesce. Three kernels, each running
   ``thread_block_tile``); x goes back through shared memory the same
   way. It runs the acrobot's (6, 6) sweeps, the rocket's (12, 16) sweeps
   and its (10, 4) sweeps up to 3,840 systems (those that compaction
-  narrowed); at (10, 8), (10, 1) and (12, 1) the cut is 0 (``_build.py``
-  says why).
-* Wider launches at up to 16 unknowns, and every (10, 8), (10, 1) and
-  (12, 1) launch, run
+  narrowed); at (10, 8) and (10, 1) the cut is 0 (``_build.py`` says
+  why).
+* At (12, 1), the rocket's midpoint Newton steps, launched 32-1,024
+  systems wide, the narrow kernel is the shuffle kernel instead
+  (``BATCHED_SOLVE_SHFL_SHAPES``): a 16-lane tile a system, two a warp,
+  four a 64-thread block. Lane c loads column c of A (lane 12 the
+  right-hand side) straight from its strides into registers, with no
+  staging through shared memory, and the Householder steps and the back
+  substitution run on every lane from shuffled rows, with no barrier
+  (``csrc/qr_shfl.cuh``, the Newton step of K1's warp kernel on the
+  rocket's projection too). There one thread a system fills a few SMs
+  with one long chain each, and the tile's staging and its barrier a
+  step lost to it at every width (PERF.md section 6).
+* Wider launches at up to 16 unknowns, and every (10, 8) and (10, 1)
+  launch, run
   the per-thread kernel (128 threads a block, the factorisation
   unrolled into registers, the per-thread QR of the fused IP kernels,
   ``csrc/qr.cuh``). On the sweep's row-interleaved Jacobians the warp's
@@ -64,8 +75,8 @@ the tile kernel's staging walks such a layout along its rows, across
 the block's systems, so its loads still coalesce.
 
 The wrapper picks by ``_build.batched_solve_route(n, k, B)``; it counts
-every launch in ``batched_solve.launches``, the tile kernel's in
-``batched_solve.tile_launches`` too, each launch by (kernel, B) in
+every launch in ``batched_solve.launches``, the narrow kernel's (tile or
+shuffle) in ``batched_solve.tile_launches`` too, each launch by (kernel, B) in
 ``batched_solve.widths``, by (n, k) in ``batched_solve.shapes`` and by
 (n, k, kernel, B) in ``batched_solve.shape_widths``.
 
@@ -174,7 +185,7 @@ def batched_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise RuntimeError("batched_solve kernel launch failed: CUDA error "
                            "%d" % err)
     batched_solve.launches += 1
-    batched_solve.tile_launches += route == "tile"
+    batched_solve.tile_launches += route in ("tile", "shfl")
     batched_solve.widths[route, B] += 1
     batched_solve.shapes[n, k] += 1
     batched_solve.shape_widths[n, k, route, B] += 1

@@ -16,22 +16,32 @@
 // thrust-projection solves (the Newton solves at (20, 1) and (10, 1) run
 // inside K1 on a deploy; the shapes stay compiled and tested).
 //
-// Three kernels:
+// Four kernels:
 // * N <= UNROLL_MAX_N, narrow launches (the wrapper's cut,
-//   BATCHED_SOLVE_TILE_MAX_B): a tile of W = solve_tile_width<N, K>()
+//   BATCHED_SOLVE_TILE_MAX_B), every shape but (12, 1): the tile kernel, a
+//   tile of W = solve_tile_width<N, K>()
 //   threads a system (the smallest power of two >= N + K), the
 //   column-per-thread QR of qr_group.cuh on a thread_block_tile<W>,
 //   SOLVE_TILE_BLOCK / W systems a block. The block stages its systems'
 //   A and b through shared memory with loads over all its threads
 //   (neighbouring threads read neighbouring words), each thread takes its
 //   column into registers, and x goes back the same way;
+// * (12, 1), narrow launches: the shuffle kernel, a 16-lane tile a system
+//   that loads its columns straight into registers and solves with
+//   qr_solve_shfl (qr_shfl.cuh), no shared memory and no barrier. The
+//   rocket's midpoint Newton steps are launched 32-1,024 systems wide
+//   (PERF.md section 6): there a thread a system fills a few SMs with
+//   one long serial chain each, and the tile kernel's staging through
+//   shared memory and its barrier a reflector step lost to it at every
+//   width;
 // * N <= UNROLL_MAX_N, wide launches: one thread a system, the per-thread
 //   QR of qr.cuh with every loop unrolled (the system lives in
 //   registers);
 // * N > UNROLL_MAX_N: one 64-thread block a system, the column-per-thread
 //   QR of qr_group.cuh, staged through shared memory as the tile kernel.
-// All three run qr_body.cuh's steps in its order. The tile and group
-// kernels agree with the rolled per-thread QR bit for bit; the unrolled
+// All four run qr_body.cuh's steps in its order. The tile and group
+// kernels agree with the rolled per-thread QR bit for bit (the shuffle
+// kernel runs their expressions, from registers); the unrolled
 // one (N <= UNROLL_MAX_N) rounds some squares apart from their sums where
 // qr_group.cuh fuses them (nvcc shares v[r] * v[r] = R[r][i]^2 between
 // the norms and the pivot column's product), so there the tile and
@@ -43,6 +53,7 @@
 #include "odt_common.cuh"
 #include "qr.cuh"
 #include "qr_group.cuh"
+#include "qr_shfl.cuh"
 
 namespace odt {
 
@@ -223,6 +234,57 @@ int launch_batched_solve_tile(const void* A, const void* b, void* x, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The shuffle kernel, at (12, 1) (the rocket's midpoint Newton steps):
+// a tile of W = solve_tile_width<N, 1>() lanes a system (16 at (12, 1),
+// two systems a warp), SOLVE_SHFL_BLOCK / W systems a block. Lane c < N
+// loads column c of A and lane N the right-hand side straight from their
+// strides into registers (row r of the warp's two systems is one run of
+// adjacent words in the row-interleaved layout the solver passes), the
+// solve is qr_solve_shfl (qr_shfl.cuh: shuffles, no shared memory, no
+// barrier), and lane r writes x[r]. Lanes of a system past B load zeros
+// and take part in the shuffles (which name the whole warp), writing
+// nothing.
+constexpr int SOLVE_SHFL_BLOCK = 64;
+
+template <typename T, int N, int K>
+__global__ void __launch_bounds__(SOLVE_SHFL_BLOCK)
+batched_solve_shfl_kernel(const T* __restrict__ A, const T* __restrict__ b,
+                          T* __restrict__ x, int B, SolveStrides st) {
+  static_assert(K == 1 && N <= UNROLL_MAX_N, "one right-hand side");
+  constexpr int W = solve_tile_width<N, K>();
+  static_assert(SOLVE_SHFL_BLOCK % 32 == 0 && 32 % W == 0,
+                "a warp holds whole tiles");
+  const int64_t s =
+      ((int64_t)blockIdx.x * SOLVE_SHFL_BLOCK + threadIdx.x) / W;
+  const int c = static_cast<int>(threadIdx.x) % W;
+  const bool live = s < B && c <= N;
+  const T* src = c < N ? A + s * st.a_sys + c : b + s * st.b_sys;
+  const int64_t stride = c < N ? st.a_row : st.b_row;
+  T col[N];
+#pragma unroll
+  for (int r = 0; r < N; ++r) col[r] = live ? src[r * stride] : T(0);
+  T xs[N];
+  qr_solve_shfl<N, W>(c, col, xs);
+  if (s < B) {
+#pragma unroll
+    for (int r = 0; r < N; ++r)
+      if (r == c) x[s * N + r] = xs[r];
+  }
+}
+
+template <typename T, int N, int K>
+int launch_batched_solve_shfl(const void* A, const void* b, void* x, int B,
+                              SolveStrides st, void* stream) {
+  if (B <= 0) return 0;
+  constexpr int per_block = SOLVE_SHFL_BLOCK / solve_tile_width<N, K>();
+  batched_solve_shfl_kernel<T, N, K>
+      <<<(B + per_block - 1) / per_block, SOLVE_SHFL_BLOCK, 0,
+         (cudaStream_t)stream>>>(static_cast<const T*>(A),
+                                 static_cast<const T*>(b),
+                                 static_cast<T*>(x), B, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace odt
 
 // entry points: A, b, x, B, A's and b's strides between systems and
@@ -243,8 +305,17 @@ int launch_batched_solve_tile(const void* A, const void* b, void* x, int B,
         A, b, x, B, odt::SolveStrides{a_sys, a_row, b_sys, b_row}, stream); \
   }
 
+#define ODT_BATCHED_SOLVE_SHFL(N, K, SUFFIX, T)                             \
+  int odt_batched_solve_shfl_n##N##_k##K##_##SUFFIX(                        \
+      const void* A, const void* b, void* x, int B, int64_t a_sys,          \
+      int64_t a_row, int64_t b_sys, int64_t b_row, void* stream) {          \
+    return odt::launch_batched_solve_shfl<T, N, K>(                         \
+        A, b, x, B, odt::SolveStrides{a_sys, a_row, b_sys, b_row}, stream); \
+  }
+
 // one line per (n, k) of BATCHED_SOLVE_SHAPES in ops/kernels/_build.py; the
-// tile kernel for n <= UNROLL_MAX_N
+// narrow kernel for n <= UNROLL_MAX_N (the shuffle kernel at
+// BATCHED_SOLVE_SHFL_SHAPES, the tile kernel at the others)
 extern "C" {
 ODT_BATCHED_SOLVE(10, 8, f32, float)
 ODT_BATCHED_SOLVE(10, 8, f64, double)
@@ -278,10 +349,10 @@ ODT_BATCHED_SOLVE_TILE(2, 1, f32, float)
 ODT_BATCHED_SOLVE_TILE(2, 1, f64, double)
 ODT_BATCHED_SOLVE_TILE(2, 6, f32, float)
 ODT_BATCHED_SOLVE_TILE(2, 6, f64, double)
-ODT_BATCHED_SOLVE_TILE(12, 1, f32, float)
-ODT_BATCHED_SOLVE_TILE(12, 1, f64, double)
 ODT_BATCHED_SOLVE_TILE(12, 16, f32, float)
 ODT_BATCHED_SOLVE_TILE(12, 16, f64, double)
 ODT_BATCHED_SOLVE_TILE(10, 4, f32, float)
 ODT_BATCHED_SOLVE_TILE(10, 4, f64, double)
+ODT_BATCHED_SOLVE_SHFL(12, 1, f32, float)
+ODT_BATCHED_SOLVE_SHFL(12, 1, f64, double)
 }  // extern "C"

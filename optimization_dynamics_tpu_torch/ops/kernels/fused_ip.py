@@ -61,15 +61,18 @@ are made by every thread of warp 0 alike, and a group sync hands them
 to warp 1. The wrapper sends it every launch up to its cut (every
 launch of the B=256 deploy); wider ones run the per-thread kernel.
 
-Two more functors run on the same two kernels, the residuals on which
-the reference's tests run its fused kernel besides these three:
-``rocket_projection`` (the rocket's thrust-cone projection, nz=10,
-ntheta=4; ``csrc/rocket_projection.cuh``, ``fused_ip_rocket.cu``): a
-16-thread tile, four a block, up to its cut of 3,840 scenarios (the
-rollout steps and the compacted sweeps of the rocket deploy), the
-per-thread kernel above (its 15,360-wide sweeps), where running all 25
-line-search candidates with fewer instructions a scenario beats the
-tile's redundant spine; and ``hopper`` (the hopper model, nz=20,
+Two more functors run K1, the residuals on which the reference's tests
+run its fused kernel besides these three: ``rocket_projection`` (the
+rocket's thrust-cone projection, nz=10, ntheta=4;
+``csrc/rocket_projection.cuh``, ``fused_ip_rocket.cu``), whose narrow
+kernel is a whole warp a scenario (``csrc/ip_warp.cuh``, two a 64-thread
+block; ``FUSED_IP_WARP_FUNCTORS``): its Newton step is a Householder QR
+held in registers and synchronised by shuffles (``csrc/qr_shfl.cuh``), no
+shared memory and no barrier, and its 32 lanes run all 25 line-search
+candidates at once, where a 16-thread tile needed a second chunk
+whenever the first 16 failed; it runs up to its cut (the rollout steps
+and the compacted sweeps of the rocket deploy), the per-thread kernel
+above; and ``hopper`` (the hopper model, nz=20,
 ntheta=13; ``csrc/hopper.cuh``, ``fused_ip_hopper.cu``): a 32-thread
 tile, two a block, which wins at every width swept up to its cut of
 51,200 (the per-thread kernel keeps the 20x20 Jacobian and its QR in
@@ -141,11 +144,12 @@ def fused_ip(z0s: torch.Tensor, thetas: torch.Tensor, kernel: str,
              plain: Callable) -> IPSolution:
     """The K1 wrapper. CPU tensors run ``plain``; CUDA tensors launch the
     kernel of the device functor ``kernel`` (float32 or float64): its
-    narrow kernel (the tile kernel, or for K1n the group kernel) up to
+    narrow kernel (the tile kernel; for K1n the group kernel, for the
+    rocket's projection the warp kernel) up to
     ``FUSED_IP_TILE_MAX_B["fused_ip", kernel]`` scenarios (counted in
     ``fused_ip.tile_launches`` too), else the per-thread kernel.
     ``fused_ip.widths`` counts the launches by (kernel, B), with kernel
-    ``"tile"``, ``"group"`` or ``"thread"``."""
+    ``"tile"``, ``"warp"``, ``"group"`` or ``"thread"``."""
     if z0s.device.type == "cpu" and thetas.device.type == "cpu":
         return plain(z0s, thetas)
     if z0s.device.type != "cuda" or thetas.device != z0s.device:

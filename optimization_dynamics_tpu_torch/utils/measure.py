@@ -12,10 +12,11 @@ inputs, so two checkouts that both have this module time the same work:
   behind a spin kernel so that no host time falls between the events;
   ``launch_ms``: an empty kernel's, both ways;
 * ``kernel_route``, ``routed``: every K1 and K4 launch of a functor sent
-  to its narrow kernel (tile, or K1n's group) or to its per-thread
-  kernel, for a block of code or a call; ``cut_routed``: the same for a
-  wrapper with its own cut table (K2's ``BATCHED_SOLVE_TILE_MAX_B``,
-  K3's ``RICCATI_TILE_MAX_B``);
+  to its narrow kernel (tile, K1n's group, the rocket projection's warp)
+  or to its per-thread kernel, for a block of code or a call;
+  ``cut_routed``: the same for a wrapper with its own cut table (K2's
+  ``BATCHED_SOLVE_TILE_MAX_B``, whose narrow kernel at (12, 1) is the
+  shuffle kernel; K3's ``RICCATI_TILE_MAX_B``);
 * ``rel_residual``: the relative residual of batched solves;
   ``ift_systems``: the IFT systems of a derivative sweep at a fused IP
   solve's solutions, laid out as the sweep passes them;
@@ -125,8 +126,9 @@ def launch_ms() -> dict:
 @contextlib.contextmanager
 def kernel_route(functor: str, tile: bool):
     """Within the block, every K1 and K4 launch of ``functor`` runs its
-    narrow kernel (``tile``: the tile kernel, or K1n's group kernel) or its
-    per-thread kernel, whatever its width:
+    narrow kernel (``tile``: the tile kernel, K1n's group kernel or the
+    rocket projection's warp kernel) or its per-thread kernel, whatever
+    its width:
     the wrappers' width cuts ``FUSED_IP_TILE_MAX_B`` set for the block."""
     from optimization_dynamics_tpu_torch.ops.kernels._build import (
         FUSED_IP_TILE_MAX_B)
@@ -151,8 +153,9 @@ def routed(functor: str, tile: bool, fn):
 
 def cut_routed(table: dict, key, tile: bool, fn):
     """``fn`` with the cut ``table[key]`` set for the call: every launch of
-    that wrapper and shape runs its tile kernel (``tile``) or its
-    per-thread kernel, whatever its width."""
+    that wrapper and shape runs its narrow kernel (``tile``: the tile, or
+    K2's shuffle kernel at (12, 1)) or its per-thread kernel, whatever its
+    width."""
     def call(*args, **kwargs):
         old = table[key]
         table[key] = 2 ** 31 - 1 if tile else 0

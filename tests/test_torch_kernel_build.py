@@ -4,10 +4,11 @@ The CUDA sources compile only on a machine with the card, so these tests
 check what can be checked without ``nvcc``: that every C entry point the
 wrappers call (``_build.SIGNATURES``) is instantiated by exactly one line
 of ``csrc/*.cu``, that the functors given the narrow kernels (K1's and
-K4's tiles, K1n's 64-thread group) fit them, that the library's name
+K4's tiles, K1n's 64-thread group, the rocket projection's warp) fit
+them, that the library's name
 follows its sources, that ``ptxas_report`` reads a ``-Xptxas -v`` log,
-that K2's and K3's tile kernels fit their tiles and have a cut for every
-shape they serve, that those wrappers pick their kernel by width
+that K2's and K3's narrow kernels (tiles; K2's shuffle kernel at (12,
+1)) fit their tiles and have a cut for every shape they serve, that those wrappers pick their kernel by width
 (``_build.batched_solve_route``, ``riccati_route``, which need no
 library), and that the K1, K2, K3 and K4 wrappers run their plain
 versions on CPU tensors.
@@ -30,6 +31,8 @@ def _instantiated_symbols():
                                                                      a[2]),
         "ODT_FUSED_IP_GROUP": lambda a: "odt_fused_ip_group_%s_%s" % (a[0],
                                                                        a[2]),
+        "ODT_FUSED_IP_WARP": lambda a: "odt_fused_ip_warp_%s_%s" % (a[0],
+                                                                     a[2]),
         "ODT_FUSED_ROLLOUT": lambda a: "odt_fused_rollout_%s_%s" % (a[0],
                                                                      a[2]),
         "ODT_FUSED_ROLLOUT_TILE": lambda a: "odt_fused_rollout_tile_%s_%s" % (
@@ -38,6 +41,8 @@ def _instantiated_symbols():
             a[0], a[1], a[2]),
         "ODT_BATCHED_SOLVE_TILE": lambda a: (
             "odt_batched_solve_tile_n%s_k%s_%s" % (a[0], a[1], a[2])),
+        "ODT_BATCHED_SOLVE_SHFL": lambda a: (
+            "odt_batched_solve_shfl_n%s_k%s_%s" % (a[0], a[1], a[2])),
         "ODT_RICCATI": lambda a: "odt_riccati_nx%s_nu%s_%s" % (a[0], a[1],
                                                                a[2]),
         "ODT_RICCATI_TILE": lambda a: "odt_riccati_tile_nx%s_nu%s_%s" % (
@@ -66,9 +71,12 @@ def test_tile_functors_fit_a_tile():
     whose NZ + 1 columns do not fit a warp (planar push) runs on a group
     of IP_GROUP_THREADS = 64 threads instead (csrc/ip_group.cuh), whole
     groups to a block of IP_GROUP_BLOCK threads, one named barrier each.
-    Every (wrapper, functor) entry of FUSED_IP_TILE_MAX_B has its narrow
-    kernel's float32 and float64 entry points: K1's tile or group kernel,
-    or K4's tile kernel for a functor with a fused rollout."""
+    The functors of FUSED_IP_WARP_FUNCTORS (the rocket's projection) run
+    on a whole warp instead (csrc/ip_warp.cuh), whole warps to a block of
+    IP_WARP_BLOCK threads. Every (wrapper, functor) entry of
+    FUSED_IP_TILE_MAX_B has its narrow kernel's float32 and float64 entry
+    points: K1's tile, warp or group kernel, or K4's tile kernel for a
+    functor with a fused rollout."""
     text = (_build.CSRC / "ip_tile.cuh").read_text()
     block = int(re.search(r"constexpr int IP_TILE_BLOCK = (\d+);", text)[1])
     assert re.search(r"while \(w < M::NZ \+ 1\) w \*= 2;", text)
@@ -78,6 +86,10 @@ def test_tile_functors_fit_a_tile():
     gblock = int(re.search(r"constexpr int IP_GROUP_BLOCK = (\d+);",
                            gtext)[1])
     assert group == 64 and gblock % group == 0 and gblock // group <= 15
+    wtext = (_build.CSRC / "ip_warp.cuh").read_text()
+    wblock = int(re.search(r"constexpr int IP_WARP_BLOCK = (\d+);",
+                           wtext)[1])
+    assert wblock % 32 == 0 and "W = 32;" in wtext
     symbol = {"fused_ip": _build.fused_ip_narrow_symbol,
               "fused_rollout": _build.fused_rollout_tile_symbol}
     instantiated = _instantiated_symbols()
@@ -86,7 +98,11 @@ def test_tile_functors_fit_a_tile():
         nz, _ = _build.FUSED_IP_FUNCTORS[functor]
         width = 1 << nz.bit_length()     # smallest power of two >= nz + 1
         assert max_b > 0
-        if width <= 32:
+        if functor in _build.FUSED_IP_WARP_FUNCTORS:
+            assert _build.fused_ip_narrow(functor) == "warp"
+            assert wrapper == "fused_ip" and nz + 1 <= 32
+            width = 32
+        elif width <= 32:
             assert _build.fused_ip_narrow(functor) == "tile"
             assert nz + 1 <= width and block % width == 0
         else:
@@ -99,13 +115,16 @@ def test_tile_functors_fit_a_tile():
             assert name in _build.SIGNATURES
             assert instantiated.count(name) == 1
     assert widths == {"cartpole_friction": 16, "acrobot_impact": 8,
-                      "planar_push": 64, "rocket_projection": 16,
+                      "planar_push": 64, "rocket_projection": 32,
                       "hopper": 32}
     assert _build.fused_ip_narrow_symbol("planar_push", torch.float32) == \
         "odt_fused_ip_group_planar_push_f32"
     assert _build.fused_ip_narrow_symbol("cartpole_friction",
                                          torch.float64) == \
         "odt_fused_ip_tile_cartpole_friction_f64"
+    assert _build.fused_ip_narrow_symbol("rocket_projection",
+                                         torch.float32) == \
+        "odt_fused_ip_warp_rocket_projection_f32"
     assert {("fused_rollout", f) for f in _build.FUSED_ROLLOUT_FUNCTORS} \
         <= set(_build.FUSED_IP_TILE_MAX_B)
 
@@ -153,6 +172,9 @@ def test_k2_k3_tile_widths_fit():
     assert re.search(r"while \(w < N \+ K\) w \*= 2;", solve)
     sblock = int(re.search(r"constexpr int SOLVE_TILE_BLOCK = (\d+);",
                            solve)[1])
+    shfl_block = int(re.search(r"constexpr int SOLVE_SHFL_BLOCK = (\d+);",
+                               solve)[1])
+    assert shfl_block % 32 == 0
     ric = (_build.CSRC / "riccati.cuh").read_text()
     assert re.search(r"while \(w < NX \* NX && w < 32\) w \*= 2;", ric)
     rblock = int(re.search(r"constexpr int RICCATI_TILE_BLOCK = (\d+);",
@@ -203,18 +225,24 @@ def test_k3_at_the_reference_tests_shapes(shape):
 
 @pytest.mark.parametrize("kind", ["batched_solve", "riccati"])
 def test_tile_entry_points_declared_and_instantiated_once(kind):
-    """Each of the new tile kernels' float32 and float64 entry points is in
-    SIGNATURES with its per-thread kernel's argument types and is
-    instantiated by one line of csrc/."""
+    """Each of the narrow kernels' float32 and float64 entry points (the
+    tiles; K2's shuffle kernel at the shapes of BATCHED_SOLVE_SHFL_SHAPES,
+    which have no tile) is in SIGNATURES with its per-thread kernel's
+    argument types and is instantiated by one line of csrc/."""
     instantiated = _instantiated_symbols()
     if kind == "riccati":
         shapes, symbol = _build.RICCATI_SHAPES, _build.riccati_symbol
+        narrow = lambda a, b: "tile"
     else:
         shapes, symbol = _small_solve_shapes(), _build.batched_solve_symbol
+        narrow = _build.batched_solve_narrow
+        assert _build.BATCHED_SOLVE_SHFL_SHAPES == {(12, 1)}
+        assert symbol(12, 1, torch.float32, "tile") not in _build.SIGNATURES
     for a, b in shapes:
         for dt in (torch.float32, torch.float64):
-            tile = symbol(a, b, dt, "tile")
-            assert "_tile_" in tile and tile in _build.SIGNATURES
+            tile = symbol(a, b, dt, narrow(a, b))
+            assert "_%s_" % narrow(a, b) in tile
+            assert tile in _build.SIGNATURES
             assert instantiated.count(tile) == 1
             assert _build.SIGNATURES[tile] == _build.SIGNATURES[
                 symbol(a, b, dt)]
@@ -225,9 +253,9 @@ def test_tile_entry_points_declared_and_instantiated_once(kind):
     ("batched_solve", s) for s in sorted(_build.BATCHED_SOLVE_SHAPES)])
 def test_k2_k3_route_by_width(kind, shape, monkeypatch):
     """The wrappers' choice of kernel is a pure function of the shape and
-    B: the tile kernel up to the shape's cut, the per-thread kernel past
-    it, K2's group kernel above UNROLL_MAX_N at any width; the symbol
-    names the route."""
+    B: the narrow kernel up to the shape's cut (the tile; K2's shuffle
+    kernel at (12, 1)), the per-thread kernel past it, K2's group kernel
+    above UNROLL_MAX_N at any width; the symbol names the route."""
     if kind == "riccati":
         table, route, symbol = (_build.RICCATI_TILE_MAX_B,
                                 _build.riccati_route, _build.riccati_symbol)
@@ -235,10 +263,12 @@ def test_k2_k3_route_by_width(kind, shape, monkeypatch):
         table, route, symbol = (_build.BATCHED_SOLVE_TILE_MAX_B,
                                 _build.batched_solve_route,
                                 _build.batched_solve_symbol)
+    narrow = "shfl" if (kind, shape) == ("batched_solve", (12, 1)) \
+        else "tile"
     if shape in table:
         monkeypatch.setitem(table, shape, 100)
         picks = [route(*shape, B) for B in (1, 99, 100, 101, 25600)]
-        assert picks == ["tile"] * 3 + ["thread"] * 2
+        assert picks == [narrow] * 3 + ["thread"] * 2
         monkeypatch.setitem(table, shape, 0)
         assert route(*shape, 1) == "thread"
     else:
@@ -248,7 +278,7 @@ def test_k2_k3_route_by_width(kind, shape, monkeypatch):
     for r in {route(*shape, B) for B in (1, 2 ** 31 - 1)}:
         name = symbol(*shape, torch.float64, r)
         assert name in _build.SIGNATURES
-        assert ("_tile_" in name) == (r == "tile")
+        assert ("_%s_" % narrow in name) == (r == narrow)
 
 
 def test_library_is_named_by_its_sources(tmp_path, monkeypatch):
@@ -471,3 +501,49 @@ def test_interleave_rows_is_the_ift_jacobians_layout():
         assert mine.stride() == jac.stride()
         B, _, m = jac.shape
         assert jac.stride() == (m, B * m, 1)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_warp_kernel_step_lengths_are_the_serial_sweeps(dtype):
+    """K1's warp kernel builds candidate j's 0.5^j from its exponent bits
+    (``pow_half`` in csrc/ip_warp.cuh) where the serial sweep multiplies a
+    running power by 0.5 j times: the two are the same number for every j
+    the bits cover, and alpha0 times either rounds to the same step (an
+    exact power of two scales without rounding but in the subnormals),
+    so the pick does not move."""
+    text = (_build.CSRC / "ip_warp.cuh").read_text()
+    bits, width, itype = ((127, 23, np.int32) if dtype == np.float32
+                          else (1023, 52, np.int64))
+    assert "j < %d" % bits in text and "%d - j" % bits in text
+    assert ("<< %d" % width) in text
+    rng = np.random.default_rng(0)
+    alpha0 = dtype(rng.uniform(1e-6, 1.0, 64))
+    pw = dtype(1.0)
+    for j in range(bits):
+        built = np.array((bits - j) << width, itype).view(dtype)
+        assert built == pw, j
+        if j < 100:
+            assert np.array_equal(alpha0 * built, alpha0 * pw)
+        pw = dtype(pw * dtype(0.5))
+
+
+def test_rocket_step_routes_at_the_deploy_widths():
+    """The rocket deploy's widths take the kernels the width sweeps picked:
+    its rollout steps and compacted sweeps (32 to 1,024 scenarios) K1's
+    warp kernel and K2's shuffle kernel at (12, 1), its full sweeps
+    (15,360, B x (T-1) at B=256) the per-thread kernels; the other rocket
+    shapes keep their own kernels, and the projection's default line
+    search fits the warp in one chunk."""
+    from optimization_dynamics_tpu_torch.solver.interior_point import (
+        IPOptions)
+
+    assert _build.fused_ip_narrow("rocket_projection") == "warp"
+    cut = _build.FUSED_IP_TILE_MAX_B["fused_ip", "rocket_projection"]
+    for B in (32, 256, 512, 1024):
+        assert B <= cut
+        assert _build.batched_solve_route(12, 1, B) == "shfl"
+        assert _build.batched_solve_route(12, 16, B) == "tile"
+    assert 15360 > cut
+    assert _build.batched_solve_route(12, 1, 15360) == "thread"
+    assert _build.batched_solve_route(10, 1, 512) == "thread"
+    assert IPOptions().max_ls <= 32

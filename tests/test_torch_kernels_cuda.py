@@ -55,14 +55,19 @@ is to the plain version. K3 at the hopper's (16, 10), whose tile kernel
 factors Quu once in shared memory, with the hopper's ragged mask and an
 indefinite Quu on every fifth lane, as at the other shapes. K2 at the
 rocket's (12, 1), (12, 16), (10, 4) and (10, 1) on its own Newton and
-IFT systems through both kernels, as at the hopper's shapes. K1 at the
-rocket's thrust projection (nz=10, a 16-thread tile) and the hopper model
-(nz=20, a 32-thread tile): each of its two kernels, forced by the cut,
+IFT systems through both kernels, as at the hopper's shapes; at (12, 1)
+the narrow kernel is the shuffle kernel (a 16-lane tile a system, its
+columns in registers), held within 1e-10 of the per-thread kernel and
+the plain version in float64 on each side of its cut. K1 at the rocket's
+thrust projection (nz=10, a warp a scenario) and the hopper model (nz=20,
+a 32-thread tile): each of its two kernels, forced by the cut,
 against the plain version as K1n (float64 flags on >= 99.5% of lanes,
 iteration counts on >= 99%, z within 1e-10 where both converge in the
 same count), in float32 the rocket's thrusts within 1e-4 and in the cone,
 the hopper model's configurations within 2e-4; ragged batches, the route
-by width, and the wrapper raising on a wrong functor or shape; the
+by width, the rocket's warp kernel on each side of its cut and with a
+line search of two chunks (max_ls = 40), and the wrapper raising on a
+wrong functor or shape; the
 rocket's and the hopper model's deploys launch K1 and no K2 at (10, 1)
 or (20, 1).
 """
@@ -85,6 +90,8 @@ from optimization_dynamics_tpu_torch.ops.kernels._build import (
     FUSED_IP_TILE_MAX_B,
     RICCATI_TILE_MAX_B,
     UNROLL_MAX_N,
+    batched_solve_route,
+    fused_ip_narrow,
 )
 from optimization_dynamics_tpu_torch.ops.kernels.batched_solve import (
     batched_solve,
@@ -947,7 +954,9 @@ def _rel(x, ref):
 
 
 def _solve_routes(A, b):
-    """x from K2's tile and per-thread kernels, each forced by the cut."""
+    """x from K2's narrow kernel (``"tile"``: the tile kernel, or the
+    shuffle kernel at (12, 1)) and its per-thread kernel, each forced by
+    the cut."""
     key = (A.shape[1], b.shape[2])
     out = {}
     for route in ("tile", "thread"):
@@ -1271,10 +1280,38 @@ def test_batched_solve_rocket_shapes_match_plain(card, dtype, nk):
         assert _rel(got["tile"], got["thread"]) <= 1e-10
     before = batched_solve.shape_widths.copy()
     batched_solve(A, b)
-    route = "tile" if A.shape[0] <= BATCHED_SOLVE_TILE_MAX_B[nk] else \
-        "thread"
+    route = batched_solve_route(*nk, A.shape[0])
+    assert route == ("thread" if A.shape[0] > BATCHED_SOLVE_TILE_MAX_B[nk]
+                     else "shfl" if nk == (12, 1) else "tile")
     assert batched_solve.shape_widths[(*nk, route, A.shape[0])] == \
         before[(*nk, route, A.shape[0])] + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_batched_solve_rocket_newton_around_the_cut(card, dtype):
+    """K2 at (12, 1) through the wrapper's route at its cut (the shuffle
+    kernel) and one system past it (the per-thread kernel), on the
+    rocket's midpoint Newton systems repeated to that width (the Jacobians
+    row-interleaved, the right-hand sides contiguous, as the solver passes
+    them): relative residual <= 1e-12 in float64, x within 1e-10 of the
+    plain version's and of each other on the shared systems, relative;
+    <= 1e-5 in float32; each launch counted under its kernel and width."""
+    cut = BATCHED_SOLVE_TILE_MAX_B[12, 1]
+    A, b = rocket_systems(1000, 65, card, dtype)[12, 1]
+    A, b = interleave_rows(grow_batch([A, b], cut + 1))
+    b = b.contiguous()
+    xs = {}
+    for B, route in ((cut, "shfl"), (cut + 1, "thread")):
+        before = batched_solve.shape_widths[12, 1, route, B]
+        xs[B] = batched_solve(A[:B], b[:B])
+        assert batched_solve.shape_widths[12, 1, route, B] == before + 1
+        if dtype == torch.float64:
+            assert rel_residual(A[:B], xs[B], b[:B]) <= 1e-12
+            assert _rel(xs[B], batched_solve_plain(A[:B], b[:B])) <= 1e-10
+        else:
+            assert rel_residual(A[:B], xs[B], b[:B]) <= 1e-5
+    if dtype == torch.float64:
+        assert _rel(xs[cut], xs[cut + 1][:cut]) <= 1e-10
 
 
 def test_rocket_deploy_launches_k2_at_its_shapes(card):
@@ -1369,8 +1406,9 @@ MODEL_CASES = [("rocket_projection", "cold"), ("hopper", "cold"),
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("name,case", MODEL_CASES)
 def test_fused_ip_model_kernels_match_plain(card, name, case, dtype, route):
-    """K1 on ``rocket_projection`` and ``hopper``: the tile kernel (16 and
-    32 threads a scenario) and the per-thread kernel, each forced by the
+    """K1 on ``rocket_projection`` and ``hopper``: the narrow kernel
+    (``"tile"``: the rocket's warp kernel, a warp a scenario; the hopper
+    model's 32-thread tile) and the per-thread kernel, each forced by the
     wrapper's cut, against the plain version."""
     model, opts, z0s, ths = _model_case(name, case, card, dtype)
     kern = routed(name, route == "tile",
@@ -1386,10 +1424,10 @@ def test_fused_ip_model_kernels_match_plain(card, name, case, dtype, route):
 @pytest.mark.parametrize("name", ["rocket_projection", "hopper"])
 @pytest.mark.parametrize("B", [1, 3, 5, 65])
 def test_fused_ip_model_tile_kernel_ragged_batch(card, name, B):
-    """The tile kernels (four 16-thread tiles a 64-thread block for the
-    rocket's projection, two 32-thread tiles for the hopper model) on
-    batches that are not a whole number of tiles a block: every lane
-    solved, float64 flags and iteration counts as the plain version's."""
+    """The narrow kernels (two warps a 64-thread block for the rocket's
+    projection, two 32-thread tiles for the hopper model) on batches that
+    are not a whole number of scenarios a block: every lane solved,
+    float64 flags and iteration counts as the plain version's."""
     model, opts, z0s, ths = _model_case(name, "cold", card, torch.float64)
     z0s, ths = z0s[:B], ths[:B]
     tiles = fused_ip.tile_launches
@@ -1406,20 +1444,67 @@ def test_fused_ip_model_tile_kernel_ragged_batch(card, name, B):
 
 @pytest.mark.parametrize("name", ["rocket_projection", "hopper"])
 def test_fused_ip_model_kernels_route_by_width(card, name):
-    """Up to FUSED_IP_TILE_MAX_B["fused_ip", name] scenarios the tile
-    kernel runs, one past it the per-thread kernel (the inputs repeated to
-    the width), each counted by kernel and width."""
+    """Up to FUSED_IP_TILE_MAX_B["fused_ip", name] scenarios the narrow
+    kernel runs (the rocket's warp kernel, the hopper model's tile), one
+    past it the per-thread kernel (the inputs repeated to the width), each
+    counted by kernel and width."""
     limit = FUSED_IP_TILE_MAX_B["fused_ip", name]
+    narrow = fused_ip_narrow(name)
+    assert narrow == ("warp" if name == "rocket_projection" else "tile")
     model, opts, z0s, ths = _model_case(name, "cold", card, torch.float32)
     z0s, ths = grow_batch([z0s, ths], limit + 1)
     solve = make_fused_ip_solver(model, opts, card, torch.float32)
-    for B, route in ((limit, "tile"), (limit + 1, "thread")):
+    for B, route in ((limit, narrow), (limit + 1, "thread")):
         width = fused_ip.widths[route, B]
         tiles = fused_ip.tile_launches
         sol = solve(z0s[:B], ths[:B])
         assert fused_ip.widths[route, B] == width + 1
-        assert fused_ip.tile_launches == tiles + (route == "tile")
+        assert fused_ip.tile_launches == tiles + (route == narrow)
         assert bool(torch.isfinite(sol.z).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fused_ip_rocket_warp_kernel_around_the_cut(card, dtype):
+    """K1 on the rocket's projection through the wrapper's route at its cut
+    (the warp kernel) and one scenario past it (the per-thread kernel), on
+    cold projections (``rocket_projection_batch`` seed 66) repeated to
+    that width: each against the plain version on its lanes as
+    ``_assert_model_agrees`` holds it."""
+    limit = FUSED_IP_TILE_MAX_B["fused_ip", "rocket_projection"]
+    model, z0s, ths = rocket_projection_batch(3000, 66, card, dtype)
+    z0s, ths = grow_batch([z0s, ths], limit + 1)
+    opts = _rocket_proj_opts()
+    solve = make_fused_ip_solver(model, opts, card, dtype)
+    plain = make_fused_ip_plain(model, opts, card, dtype)
+    for B, route in ((limit, "warp"), (limit + 1, "thread")):
+        width = fused_ip.widths[route, B]
+        sk = solve(z0s[:B], ths[:B])
+        assert fused_ip.widths[route, B] == width + 1
+        _assert_model_agrees("rocket_projection", sk,
+                             plain(z0s[:B], ths[:B]), dtype)
+
+
+def test_fused_ip_rocket_warp_kernel_line_search_in_chunks(card):
+    """The rocket's warp kernel with max_ls = 40 (two chunks of 32
+    candidates) and max_ls = 5 (five of its lanes): float64 flags and
+    iteration counts as the plain version's on every lane, z within
+    1e-10."""
+    import dataclasses
+
+    model, z0s, ths = rocket_projection_batch(200, 67, card, torch.float64)
+    for max_ls in (40, 5):
+        opts = dataclasses.replace(_rocket_proj_opts(), max_ls=max_ls)
+        kern = routed("rocket_projection", True,
+                      make_fused_ip_solver(model, opts, card, torch.float64))
+        tiles = fused_ip.tile_launches
+        sk = kern(z0s, ths)
+        assert fused_ip.tile_launches == tiles + 1
+        sp = make_fused_ip_plain(model, opts, card, torch.float64)(z0s, ths)
+        np.testing.assert_array_equal(sk.converged.cpu().numpy(),
+                                      sp.converged.cpu().numpy())
+        np.testing.assert_array_equal(sk.iterations.cpu().numpy(),
+                                      sp.iterations.cpu().numpy())
+        assert float((sk.z - sp.z).abs().max()) <= 1e-10
 
 
 def test_fused_ip_model_wrappers_raise_on_wrong_functor_or_shape(card):

@@ -74,8 +74,10 @@ deploy sweep at B=256 (``rocket_systems`` seed 70: Jacobians at the
 deploy's x0 scatter, row-interleaved; the Newton right-hand sides
 contiguous, as the solver passes them), one call and queued beside
 ``torch.linalg.solve``; and at each of ``--linalg-widths`` each shape's
-tile and per-thread kernel in turn, on those systems repeated to the
-width, where the four cuts of ``BATCHED_SOLVE_TILE_MAX_B`` are measured.
+narrow kernel (``"narrow"``: the tile; at (12, 1) the shuffle kernel,
+where the checkout has it) and per-thread kernel in turn, on those
+systems repeated to the width, where the four cuts of
+``BATCHED_SOLVE_TILE_MAX_B`` are measured.
 
 ``--model rocket`` and ``--model hopper`` also time K1 on their functors
 (``rocket_projection``, nz=10, at the deploy's projection options;
@@ -86,7 +88,9 @@ projections (``rocket_projection_batch`` seeds 71 and 70); the hopper
 model's 512 cold and 5,120 cold and warm solves of its deploy
 (``hopper_deploy_batch`` seeds 82, 80, 81, warm-started from K1's
 solutions one iterate earlier). At each of ``--widths`` they run through
-the tile and the per-thread kernel in turn (``routed``; the rocket's
+the narrow kernel (``"narrow"``: the tile; the rocket's warp kernel,
+where the checkout has it) and the per-thread kernel in turn
+(``routed``; the rocket's
 projections cold, as the deploy's always are, the hopper model's cold
 and warm), where ``FUSED_IP_TILE_MAX_B``'s cuts for the two functors are
 measured; K1 there is timed one call and queued. A checkout without
@@ -126,8 +130,8 @@ def _rocket_k2(m, args, dev, f32, batched_solve, _build) -> dict:
     """K2 at the rocket's four shapes on the 15,360 systems of a deploy
     sweep (``rocket_systems`` seed 70), through the wrapper's route, one
     call and queued, beside ``torch.linalg.solve``; at each of
-    ``--linalg-widths`` each shape's tile and per-thread kernel in turn,
-    forced by the cut, on those systems repeated to the width
+    ``--linalg-widths`` each shape's narrow and per-thread kernel in
+    turn, forced by the cut, on those systems repeated to the width
     (row-interleaved)."""
     import torch
 
@@ -149,9 +153,9 @@ def _rocket_k2(m, args, dev, f32, batched_solve, _build) -> dict:
             if k == 1:          # the solver's right-hand side: contiguous
                 ab[1] = ab[1].contiguous()
             res = {}
-            for route in ("tile", "thread"):
+            for route in ("narrow", "thread"):
                 run = m.cut_routed(_build.BATCHED_SOLVE_TILE_MAX_B, (n, k),
-                                   route == "tile", batched_solve)
+                                   route == "narrow", batched_solve)
                 res[route] = dict(
                     ms=m.cuda_ms(lambda: run(*ab), reps=args.reps),
                     ms_device=m.device_ms(lambda: run(*ab),
@@ -167,8 +171,8 @@ def _k1_functor(m, args, dev, f32, name) -> dict:
     and 15,360 cold projections, ``rocket_projection_batch`` seeds 71 and
     70; the hopper model's 512 cold and 5,120 cold and warm deploy solves,
     ``hopper_deploy_batch`` seeds 82, 80 and 81), and at each of
-    ``--widths`` through the tile and the per-thread kernel in turn (the
-    rocket's cold, the hopper model's cold and warm), one call and
+    ``--widths`` through the narrow and the per-thread kernel in turn
+    (the rocket's cold, the hopper model's cold and warm), one call and
     queued."""
     import torch
 
@@ -219,9 +223,9 @@ def _k1_functor(m, args, dev, f32, name) -> dict:
         for case, (model, z0, th) in batches(w).items():
             kern = k1.make_fused_ip_solver(model, opts, dev, f32)
             out["k1_%s_%s_sweep_%d" % (name, case, w)] = {
-                route: time_ip(m.routed(model.kernel, route == "tile",
+                route: time_ip(m.routed(model.kernel, route == "narrow",
                                         kern), z0, th)
-                for route in ("tile", "thread")}
+                for route in ("narrow", "thread")}
             del z0, th
         torch.cuda.empty_cache()
     return out

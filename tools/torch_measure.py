@@ -80,11 +80,13 @@ def _launch_counters():
 
 
 def _by_width(widths) -> dict:
-    """``{"tile": {B: launches}, "group": {...}, "thread": {...}}`` of a
-    wrapper's ``widths`` Counter."""
+    """``{"tile": {B: launches}, "warp": {...}, "shfl": {...}, "group":
+    {...}, "thread": {...}}`` of a wrapper's ``widths`` Counter (the
+    narrow kernels: tiles, the rocket projection's warp kernel, K2's
+    shuffle kernel at (12, 1), K1n's and K2's groups)."""
     return {route: {str(b): n for (r, b), n in sorted(widths.items())
                     if r == route}
-            for route in ("tile", "group", "thread")}
+            for route in ("tile", "warp", "shfl", "group", "thread")}
 
 
 def _kernel_flags(args) -> list:
@@ -174,16 +176,20 @@ def deploy(args) -> None:
 def _kernel_label(name: str) -> str:
     """The port's kernel a profiler event belongs to, by the CUDA kernel's
     name: K1 (cartpole), K1n (push) or K1a (acrobot) by the functor, each
-    the tile (K1n: group) or the per-thread kernel; K2 the tile, the
-    per-thread or the group solve; K3 the tile or the per-thread pass; K4
-    the tile or the per-thread rollout."""
+    the tile (K1n: group; the rocket's projection: warp) or the per-thread
+    kernel; K2 the tile, the shuffle, the per-thread or the group solve;
+    K3 the tile or the per-thread pass; K4 the tile or the per-thread
+    rollout."""
     for key, label in (("fused_ip_tile_kernel", "fused_ip (tile)"),
+                       ("fused_ip_warp_kernel", "fused_ip (warp)"),
                        ("fused_ip_group_kernel", "fused_ip (group)"),
                        ("fused_ip_kernel", "fused_ip"),
                        ("batched_solve_group_kernel",
                         "K2 batched_solve (group)"),
                        ("batched_solve_tile_kernel",
                         "K2 batched_solve (tile)"),
+                       ("batched_solve_shfl_kernel",
+                        "K2 batched_solve (shfl)"),
                        ("batched_solve_kernel", "K2 batched_solve"),
                        ("riccati_tile_kernel", "K3 riccati (tile)"),
                        ("riccati", "K3 riccati"),
